@@ -1,0 +1,9 @@
+"""sr3_tpu_torch — the PyTorch / CUDA port of sr3_tpu for NVIDIA Hopper.
+
+It sits beside the JAX package, which stays the reference: the same module
+names, the same reference state_dict names, NHWC memory (logical NCHW
+tensors in ``torch.channels_last``), and hand-written sm_90a kernels in
+``csrc/`` for the three TPU kernels of the SR3 sampling path. It imports
+torch and never jax; its numpy-only host code (config, metrics, dataset,
+checkpoint key map) is imported from ``sr3_tpu``.
+"""

@@ -1,0 +1,68 @@
+"""Inference-only entry point of the port, CLI-compatible with the root
+infer.py.
+
+  python -m sr3_tpu_torch.infer -c configs/sr_sr3_16_128.json
+
+Builds the val dataset, the model (weights from ``path.resume_state``'s
+``_gen.pth`` when set) and runs grouped SR inference with process-grid
+outputs (``sr3_tpu_torch.training.evaluation.infer_sr``). The device is CUDA;
+``SR3_PLATFORM=cpu`` runs it on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+import sr3_tpu_torch.utils.config as Config
+from sr3_tpu_torch.training.evaluation import infer_sr
+from sr3_tpu_torch.training.trainer import create_model
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", type=str,
+                        default="configs/sr_sr3_16_128.json")
+    parser.add_argument("-p", "--phase", type=str, choices=["val"],
+                        default="val")
+    parser.add_argument("-gpu", "--gpu_ids", type=str, default=None)
+    parser.add_argument("-debug", "-d", action="store_true")
+    parser.add_argument("-enable_wandb", action="store_true")
+    parser.add_argument("-log_infer", action="store_true")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    opt = Config.dict_to_nonedict(Config.parse(args))
+
+    Config.setup_logger(None, opt["path"]["log"], "train", screen=True)
+    Config.setup_logger("val", opt["path"]["log"], "val")
+    logger = logging.getLogger("base")
+    logger.info(Config.dict2str(opt))
+
+    wandb_logger = None
+    if opt["enable_wandb"]:
+        from sr3_tpu.utils.wandb_logger import WandbLogger
+
+        wandb_logger = WandbLogger(opt)
+
+    # sr3_tpu.data decodes PNGs with Pillow; imported only where used
+    from sr3_tpu.data.loader import create_dataset
+
+    val_set = create_dataset(opt["datasets"]["val"], "val")
+    logger.info("Initial Dataset Finished")
+
+    trainer = create_model(opt)
+    trainer.print_network()
+    logger.info("Initial Model Finished")
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
+                                   schedule_phase="val")
+
+    logger.info("Begin Model Inference.")
+    infer_sr(trainer, val_set, opt, wandb_logger=wandb_logger)
+    logger.info("End of Model Inference.")
+
+
+if __name__ == "__main__":
+    main()

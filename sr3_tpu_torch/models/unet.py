@@ -1,0 +1,265 @@
+"""Epsilon-prediction UNet, sr3 conditioning (torch.nn, channels_last).
+
+Counterpart of ``sr3_tpu/models/unet.py`` in ``cond_mode='sr3'``: continuous
+noise-level input with the WaveGrad positional encoding, additive FiLM
+injected between the two Blocks of each ResnetBlock (the JAX package's
+network factory never turns on its affine variant), single-head attention.
+Module names follow the reference state_dict that
+``sr3_tpu.utils.torch_compat.build_key_map`` enumerates (``downs.{i}``,
+``mid.{i}``, ``ups.{i}``, ``noise_level_mlp.{1,3}``, ``final_conv``), so
+reference ``.pth`` files and exported JAX weights load with ``strict=True``.
+
+Tensors are logical NCHW in ``torch.channels_last`` memory (physically NHWC,
+like the JAX package). The compute dtype is the input's: ``UNet.forward``
+casts to ``UNet.dtype`` once and every layer keeps it; parameters are cast
+to it where they are used (no-ops when the caller pre-cast them). Every
+Block runs kernel K1 and every SelfAttention kernels K2 and K4; the stem,
+down/up-sample convs, 1x1 convs and Linear layers are plain torch, as the
+JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sr3_tpu_torch.ops.attention import attention
+from sr3_tpu_torch.ops.conv_fused import gn_silu_conv3x3
+from sr3_tpu_torch.ops.groupnorm import group_norm
+
+CL = torch.channels_last
+
+
+def positional_encoding(cond, dim):
+    """(b,) noise level -> (b, dim) [sin || cos], freq_i = 1e4^(-i/(dim/2))."""
+    count = dim // 2
+    cond = cond.reshape(-1).float()
+    step = torch.arange(count, dtype=torch.float32, device=cond.device) / count
+    enc = cond[:, None] * torch.exp(-math.log(1e4) * step[None, :])
+    return torch.cat([torch.sin(enc), torch.cos(enc)], dim=-1)
+
+
+def _conv(conv, x, **kw):
+    """nn.Conv2d applied in x's dtype, output in channels_last memory."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(x, conv.weight.to(x.dtype), bias, stride=conv.stride,
+                 padding=conv.padding, **kw)
+    return y.contiguous(memory_format=CL)
+
+
+def _linear(lin, x):
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+class PositionalEncoding(nn.Module):
+    def __init__(self, dim):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, noise_level):
+        return positional_encoding(noise_level, self.dim)
+
+
+class FeatureWiseAffine(nn.Module):
+    """Noise-level embedding -> per-(batch, channel) additive FiLM, the
+    pre-bias of block2 (reference name noise_func.noise_func.0)."""
+
+    def __init__(self, in_channels, out_channels):
+        super().__init__()
+        self.noise_func = nn.Sequential(nn.Linear(in_channels, out_channels))
+
+    def forward(self, emb):
+        return _linear(self.noise_func[0], emb)
+
+
+class Block(nn.Module):
+    """GroupNorm -> SiLU -> Dropout -> Conv3x3. The Sequential holds the
+    parameters under the reference names (norm at .block.0, conv at
+    .block.3); forward runs the fused op (kernel K1), with the ResnetBlock's
+    conditioning as its pre-affine and the skip as its residual."""
+
+    def __init__(self, dim, dim_out, groups=32, dropout=0.0):
+        super().__init__()
+        self.groups = groups
+        self.dropout = dropout
+        self.block = nn.Sequential(
+            nn.GroupNorm(groups, dim), nn.SiLU(),
+            nn.Dropout(dropout) if dropout else nn.Identity(),
+            nn.Conv2d(dim, dim_out, 3, padding=1),
+        )
+
+    def forward(self, x, pre_bias=None, residual=None):
+        if self.training and self.dropout:
+            raise NotImplementedError(
+                "the dropout training path of Block is not ported yet")
+        norm, conv = self.block[0], self.block[3]
+        return gn_silu_conv3x3(
+            x, norm.weight, norm.bias, conv.weight, conv.bias, self.groups,
+            pre_bias=pre_bias, residual=residual)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, dim, dim_out, noise_level_emb_dim=None, dropout=0.0,
+                 norm_groups=32):
+        super().__init__()
+        self.noise_func = FeatureWiseAffine(noise_level_emb_dim, dim_out)
+        self.block1 = Block(dim, dim_out, groups=norm_groups)
+        self.block2 = Block(dim_out, dim_out, groups=norm_groups,
+                            dropout=dropout)
+        self.res_conv = (nn.Conv2d(dim, dim_out, 1) if dim != dim_out
+                         else nn.Identity())
+
+    def forward(self, x, emb):
+        h = self.block1(x)
+        skip = (_conv(self.res_conv, x)
+                if isinstance(self.res_conv, nn.Conv2d) else x)
+        return self.block2(h, pre_bias=self.noise_func(emb), residual=skip)
+
+
+class SelfAttention(nn.Module):
+    """Single-head spatial self-attention with residual, softmax scale
+    1/sqrt(C); qkv's output channels are (q, k, v) in that order."""
+
+    def __init__(self, in_channel, norm_groups=32):
+        super().__init__()
+        self.groups = norm_groups
+        self.norm = nn.GroupNorm(norm_groups, in_channel)
+        self.qkv = nn.Conv2d(in_channel, in_channel * 3, 1, bias=False)
+        self.out = nn.Conv2d(in_channel, in_channel, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        n = group_norm(x, self.norm.weight, self.norm.bias, self.groups,
+                       swish=False)
+        qkv = _conv(self.qkv, n)  # (b, 3c, h, w), physically (b, h, w, 3c)
+        qkv = qkv.permute(0, 2, 3, 1).reshape(b, h * w, 3, c)
+        q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
+        out = attention(q, k, v, 1.0 / math.sqrt(c))  # (b, hw, c) float32
+        out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)  # channels_last
+        return x + _conv(self.out, out.to(x.dtype))
+
+
+class ResnetBlocWithAttn(nn.Module):
+    def __init__(self, dim, dim_out, *, noise_level_emb_dim=None,
+                 norm_groups=32, dropout=0.0, with_attn=False):
+        super().__init__()
+        self.res_block = ResnetBlock(
+            dim, dim_out, noise_level_emb_dim, norm_groups=norm_groups,
+            dropout=dropout)
+        self.attn = (SelfAttention(dim_out, norm_groups=norm_groups)
+                     if with_attn else None)
+
+    def forward(self, x, emb):
+        x = self.res_block(x, emb)
+        return self.attn(x) if self.attn is not None else x
+
+
+class Downsample(nn.Module):
+    """conv3x3 stride 2, padding 1."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.conv = nn.Conv2d(dim, dim, 3, 2, 1)
+
+    def forward(self, x):
+        return _conv(self.conv, x)
+
+
+class Upsample(nn.Module):
+    """Nearest x2, then conv3x3."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.conv = nn.Conv2d(dim, dim, 3, padding=1)
+
+    def forward(self, x):
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return _conv(self.conv, x.contiguous(memory_format=CL))
+
+
+class UNet(nn.Module):
+    """The denoiser backbone. forward(x (b, in_channel, h, w), noise level
+    (b,)) -> eps (b, out_channel, h, w) float32, channels_last."""
+
+    def __init__(self, in_channel=6, out_channel=3, inner_channel=32,
+                 norm_groups=32, channel_mults=(1, 2, 4, 8, 8), attn_res=(8,),
+                 res_blocks=3, dropout=0.0, image_size=128,
+                 dtype=torch.float32):
+        super().__init__()
+        self.in_channel = in_channel
+        self.inner_channel = inner_channel
+        self.channel_mults = tuple(channel_mults)
+        self.attn_res = tuple(attn_res or ())
+        self.res_blocks = res_blocks
+        self.image_size = image_size
+        self.dtype = dtype
+
+        ic = inner_channel
+        self.noise_level_mlp = nn.Sequential(
+            PositionalEncoding(ic), nn.Linear(ic, ic * 4), nn.SiLU(),
+            nn.Linear(ic * 4, ic))
+        rba = lambda dim, dim_out, with_attn: ResnetBlocWithAttn(
+            dim, dim_out, noise_level_emb_dim=ic, norm_groups=norm_groups,
+            dropout=dropout, with_attn=with_attn)
+
+        num_mults = len(self.channel_mults)
+        pre_channel = ic
+        feat_channels = [pre_channel]
+        now_res = image_size
+        downs = [nn.Conv2d(in_channel, ic, 3, padding=1)]
+        for ind in range(num_mults):
+            is_last = ind == num_mults - 1
+            use_attn = now_res in self.attn_res
+            channel_mult = ic * self.channel_mults[ind]
+            for _ in range(res_blocks):
+                downs.append(rba(pre_channel, channel_mult, use_attn))
+                feat_channels.append(channel_mult)
+                pre_channel = channel_mult
+            if not is_last:
+                downs.append(Downsample(pre_channel))
+                feat_channels.append(pre_channel)
+                now_res //= 2
+        self.downs = nn.ModuleList(downs)
+        self.mid = nn.ModuleList([rba(pre_channel, pre_channel, True),
+                                  rba(pre_channel, pre_channel, False)])
+        ups = []
+        for ind in reversed(range(num_mults)):
+            is_last = ind < 1
+            use_attn = now_res in self.attn_res
+            channel_mult = ic * self.channel_mults[ind]
+            for _ in range(res_blocks + 1):
+                ups.append(rba(pre_channel + feat_channels.pop(),
+                               channel_mult, use_attn))
+                pre_channel = channel_mult
+            if not is_last:
+                ups.append(Upsample(pre_channel))
+                now_res *= 2
+        self.ups = nn.ModuleList(ups)
+        self.final_conv = Block(pre_channel, out_channel, groups=norm_groups)
+
+    def forward(self, x, noise_level):
+        if x.shape[1] != self.in_channel:
+            raise ValueError(f"expected {self.in_channel} input channels "
+                             f"(NCHW), got {tuple(x.shape)}")
+        mlp = self.noise_level_mlp
+        e = mlp[0](noise_level).to(self.dtype)
+        emb = _linear(mlp[3], F.silu(_linear(mlp[1], e)))
+
+        x = _conv(self.downs[0], x.to(self.dtype).contiguous(memory_format=CL))
+        feats = [x]
+        for layer in self.downs[1:]:
+            x = layer(x, emb) if isinstance(layer, ResnetBlocWithAttn) \
+                else layer(x)
+            feats.append(x)
+        for layer in self.mid:
+            x = layer(x, emb)
+        for layer in self.ups:
+            if isinstance(layer, ResnetBlocWithAttn):
+                x = torch.cat([x, feats.pop()], dim=1)
+                x = layer(x.contiguous(memory_format=CL), emb)
+            else:
+                x = layer(x)
+        return self.final_conv(x).float()

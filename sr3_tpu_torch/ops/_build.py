@@ -1,0 +1,158 @@
+"""Build and load the port's CUDA kernels (``sr3_tpu_torch/csrc``).
+
+The kernels are CUDA C++ for Hopper (``sm_90a``) with a plain C interface.
+At first use they are compiled by ``nvcc`` into one shared library, keyed on
+a hash of the sources and flags, under ``sr3_tpu_torch/_build/`` (ignored by
+git), and loaded with ctypes. Nothing is built when a module is imported,
+and CPU tensors never reach this module: the op wrappers dispatch CPU inputs
+to their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+# name: (argtypes, restype)
+_SIGNATURES = {
+    # B, HW, C
+    "sr3_gn_workspace_floats": ([_I] * 3, _L),
+    # x, gamma, beta, y, workspace, B, HW, C, G, eps, swish, dtype, stream
+    "sr3_group_norm": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # x, pre_scale, pre_bias, gamma, beta, w, bias, res, y, workspace, B, H,
+    # W, Cin, Cout, G, eps, dtype, stream
+    "sr3_gn_silu_conv3x3": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
+    # q, k, v, o, BH, S, D, scale, dtype, stream
+    "sr3_flash_attention_fwd": ([_P] * 4 + [_I] * 3 + [_F, _I, _P], _I),
+}
+
+_lib = None
+
+
+class LaunchCount:
+    """Number of times one kernel wrapper launched its kernel."""
+
+    def __init__(self, name):
+        self.name = name
+        self.n = 0
+
+    def __repr__(self):
+        return f"LaunchCount({self.name}={self.n})"
+
+
+def find_nvcc():
+    """nvcc from $CUDA_HOME / $CUDA_PATH, then $PATH, then the default
+    toolkit location; None when there is none."""
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        home = os.environ.get(env)
+        if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(DEFAULT_CUDA_HOME, "bin", "nvcc")
+    return default if os.path.isfile(default) else None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path():
+    """Where the library for the current sources and flags is built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libsr3_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build():
+    """Compile csrc/*.cu into the shared library unless it already exists.
+    Returns its path. Raises RuntimeError when nvcc is missing or fails."""
+    out = library_path()
+    if os.path.isfile(out):
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the sr3_tpu_torch CUDA kernels are compiled at "
+            "first use on a CUDA tensor. Install the CUDA toolkit or point "
+            "CUDA_HOME at it (searched $CUDA_HOME, $CUDA_PATH, $PATH and "
+            f"{DEFAULT_CUDA_HOME})."
+        )
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed building the sr3_tpu_torch kernels:\n"
+                + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load_library():
+    """The loaded kernel library (built first if needed)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib
+
+
+def check(err, name):
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def dtype_code(t):
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    return code
+
+
+def stream_of(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t):
+    """Device pointer of a tensor, or None (NULL) for None."""
+    return None if t is None else t.data_ptr()

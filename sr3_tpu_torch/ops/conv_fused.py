@@ -1,0 +1,104 @@
+"""Fused GroupNorm -> SiLU -> conv3x3 (kernel K1, ``csrc/conv_fused.cu``).
+
+Counterpart of ``sr3_tpu/ops/conv_fused.py``. ``gn_silu_conv3x3_plain`` is
+the plain PyTorch version of the XLA spec ``gn_silu_conv3x3_xla`` (plus the
+residual add of the dispatcher): optional per-(batch, channel) pre-affine
+``a*x + b`` in x's dtype, one-pass float32 GroupNorm, SiLU, cast to x's
+dtype, conv3x3 with padding 1 and bias, then the residual.
+``gn_silu_conv3x3`` runs it for a CPU tensor and launches the Hopper kernel
+for a CUDA tensor. Activations are logical NCHW in ``torch.channels_last``
+memory; the conv weight is torch's (Cout, Cin, 3, 3), also channels_last
+(physically (Cout, 3, 3, Cin), the layout the kernel reads).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from sr3_tpu_torch.ops import _build
+from sr3_tpu_torch.ops.groupnorm import (check_channels_last,
+                                         group_norm_plain, stats_workspace)
+
+counter = _build.LaunchCount("gn_silu_conv3x3")
+
+
+def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias, num_groups,
+                          eps=1e-5, pre_scale=None, pre_bias=None,
+                          residual=None):
+    """x: (B,Cin,H,W); weight: (Cout,Cin,3,3); pre_scale/pre_bias: (B,Cin);
+    residual: (B,Cout,H,W). Returns (B,Cout,H,W) in x's dtype."""
+    if pre_scale is not None:
+        x = x * pre_scale[:, :, None, None].to(x.dtype)
+    if pre_bias is not None:
+        x = x + pre_bias[:, :, None, None].to(x.dtype)
+    xn = group_norm_plain(x, gn_weight, gn_bias, num_groups, eps, swish=True)
+    y = F.conv2d(xn, weight.to(x.dtype),
+                 None if bias is None else bias.to(x.dtype), padding=1)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def _f32_or_none(t, shape, name):
+    if t is None:
+        return None
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    return t.detach().float().contiguous()
+
+
+def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
+                    eps=1e-5, pre_scale=None, pre_bias=None, residual=None):
+    """GroupNorm+SiLU+conv3x3 (+ pre-affine, + residual): the plain version
+    on the CPU, kernel K1 on CUDA."""
+    check_channels_last(x)
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    if tuple(weight.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"weight must be ({cout}, {cin}, 3, 3), got "
+                         f"{tuple(weight.shape)}")
+    if cin % num_groups:
+        raise ValueError(f"{cin} channels do not split into {num_groups} groups")
+    if residual is not None:
+        check_channels_last(residual, "residual")
+        if tuple(residual.shape) != (b, cout, h, w):
+            raise ValueError(f"residual must be {(b, cout, h, w)}, got "
+                             f"{tuple(residual.shape)}")
+    if x.device.type == "cpu":
+        return gn_silu_conv3x3_plain(
+            x, gn_weight, gn_bias, weight, bias, num_groups, eps,
+            pre_scale=pre_scale, pre_bias=pre_bias, residual=residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_conv3x3 runs on cpu or cuda, not {x.device}")
+
+    wk = weight.detach().to(x.dtype)
+    if not wk.permute(0, 2, 3, 1).is_contiguous():
+        raise ValueError("conv weight must be in torch.channels_last memory "
+                         "(physically (Cout, 3, 3, Cin))")
+    if residual is not None and residual.dtype != x.dtype:
+        raise TypeError(f"residual dtype {residual.dtype} != x dtype {x.dtype}")
+    if x.data_ptr() % 16 or wk.data_ptr() % 16:
+        raise ValueError("x and the conv weight must start 16-byte aligned")
+    if x.dtype == torch.bfloat16 and cin % 16:
+        raise ValueError(f"the bfloat16 kernel takes C_in a multiple of 16, "
+                         f"got {cin}")
+    lib = _build.load_library()
+    ws = stats_workspace(lib, x)
+    ps = _f32_or_none(pre_scale, (b, cin), "pre_scale")
+    pb = _f32_or_none(pre_bias, (b, cin), "pre_bias")
+    cb = None if bias is None else bias.detach().float().contiguous()
+    gamma = gn_weight.detach().float().contiguous()
+    beta = gn_bias.detach().float().contiguous()
+    y = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    ptr = _build.ptr
+    err = lib.sr3_gn_silu_conv3x3(
+        x.data_ptr(), ptr(ps), ptr(pb), gamma.data_ptr(), beta.data_ptr(),
+        wk.data_ptr(), ptr(cb), ptr(residual), y.data_ptr(), ws.data_ptr(),
+        b, h, w, cin, cout, num_groups, float(eps),
+        _build.dtype_code(x), _build.stream_of(x),
+    )
+    _build.check(err, "sr3_gn_silu_conv3x3")
+    counter.n += 1
+    return y

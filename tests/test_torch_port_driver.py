@@ -1,0 +1,124 @@
+"""The port's inference CLI, its independence from JAX, and chip_smoke.py's
+refusal to run without a card, as real subprocesses on the CPU."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "dataset", "fixtures_16_128")
+SCHED = {"schedule": "linear", "n_timestep": 10, "linear_start": 1e-6,
+         "linear_end": 1e-2}
+
+
+def _config():
+    """Tiny sr3 model over the bundled 16->128 fixtures."""
+    data = {"name": "FIX", "dataroot": FIXTURES, "datatype": "img",
+            "l_resolution": 16, "r_resolution": 128}
+    return {
+        "name": "port", "phase": "val", "gpu_ids": [0],
+        "path": {"log": "logs", "tb_logger": "tb_logger",
+                 "results": "results", "checkpoint": "checkpoint",
+                 "resume_state": None},
+        "datasets": {
+            "train": dict(data, mode="HR", batch_size=2, num_workers=0,
+                          use_shuffle=True, data_len=-1),
+            "val": dict(data, mode="LRHR", data_len=2),
+        },
+        "model": {
+            "which_model_G": "sr3", "finetune_norm": False,
+            "dtype": "float32",
+            "unet": {"in_channel": 6, "out_channel": 3, "inner_channel": 8,
+                     "norm_groups": 4, "channel_multiplier": [1, 2],
+                     "attn_res": [], "res_blocks": 1, "dropout": 0.0},
+            "beta_schedule": {"train": dict(SCHED), "val": dict(SCHED)},
+            "diffusion": {"image_size": 128, "channels": 3,
+                          "conditional": True},
+        },
+        "train": {"n_iter": 4, "val_freq": 2, "save_checkpoint_freq": 2,
+                  "print_freq": 1, "optimizer": {"type": "adam", "lr": 1e-4}},
+        "wandb": {"project": "port"},
+    }
+
+
+def _run(args, cwd, timeout=300):
+    env = dict(os.environ, SR3_PLATFORM="cpu", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, (
+        f"{args} failed ({proc.returncode}):\n--- stdout ---\n"
+        f"{proc.stdout[-4000:]}\n--- stderr ---\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def test_infer_cli_writes_every_output(tmp_path):
+    cfg = tmp_path / "port.json"
+    cfg.write_text(json.dumps(_config()))
+    _run(["-m", "sr3_tpu_torch.infer", "-c", str(cfg), "-debug"], tmp_path)
+    (exp,) = (tmp_path / "experiments").iterdir()
+    assert exp.name.startswith("debug_port_")
+    results = {p.name for p in (exp / "results").iterdir()}
+    # -debug keeps 3 val images
+    expected = {f"0_{i}_{tag}.png" for i in (1, 2, 3)
+                for tag in ("sr", "hr", "inf", "sr_process")}
+    assert results == expected
+    log = (exp / "logs" / "train.log").read_text()
+    assert "End of Model Inference." in log
+
+
+def test_port_imports_no_jax(tmp_path):
+    script = textwrap.dedent(f"""
+        import importlib, json, pkgutil, sys
+        import numpy as np
+        import sr3_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            sr3_tpu_torch.__path__, "sr3_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        from sr3_tpu_torch.training.evaluation import GroupedEvaluator
+        from sr3_tpu_torch.training.trainer import create_model
+        opt = json.loads({json.dumps(_config())!r})
+        opt["model"]["diffusion"]["image_size"] = 16
+        opt["model"]["unet"]["attn_res"] = [8]
+        trainer = create_model(opt)
+        trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
+                                       "val")
+        item = {{"SR": np.zeros((16, 16, 3), np.float32)}}
+        (_, frames), = GroupedEvaluator(trainer, 1).run_sr([item], True)
+        assert frames.shape == (11, 16, 16, 3) and np.isfinite(frames).all()
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                         "orbax")]
+        assert not loaded, loaded
+        print("modules", len(names))
+    """)
+    proc = _run(["-c", script], tmp_path)
+    n = int(proc.stdout.split("modules")[-1])
+    assert n >= 12
+    # chip_smoke.py names only the port: the JAX package's host code it
+    # needs comes in through the port's own modules
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    imported = {a.name for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for a in node.names}
+    imported |= {node.module for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) and node.module}
+    foreign = {m for m in imported
+               if m.split(".")[0] in ("sr3_tpu", "jax", "flax")}
+    assert not foreign, foreign
+    assert "sr3_tpu_torch.ops" in imported
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "torch.cuda.is_available() is false" in proc.stderr
