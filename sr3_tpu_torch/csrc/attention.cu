@@ -1,12 +1,13 @@
 // K4: flash-attention forward, non-causal, online softmax with float32
-// running max / sum / accumulator; float32 output.
+// running max / sum / accumulator; float32 output and, optionally, the
+// float32 per-row logsumexp m + log(l) of the scaled scores (the input of
+// the backward kernels K5 / K6 in attention_bwd.cu).
 //
 // Replaces the TPU kernel sr3_tpu/ops/attention.py:58 `_flash_fwd_kernel`
-// (pallas_call in `_fwd_pallas_call`, :104), without its optional per-row
-// logsumexp output (the training backward's input, not yet ported). On the
-// 16->128 main path it is the single-head self-attention at 16x16 and in the
-// 8x8 mid block: (B, 256, 512) and (B, 64, 512), scale 1/sqrt(512), six
-// calls per UNet forward.
+// (pallas_call in `_fwd_pallas_call`, :104), with its `with_lse` output. On
+// the 16->128 main path it is the single-head self-attention at 16x16 and in
+// the 8x8 mid block: (B, 256, 512) and (B, 64, 512), scale 1/sqrt(512), six
+// calls per UNet forward; a training step asks for the logsumexp.
 //
 // Bound on the card: at these sequence lengths neither memory nor FLOPs are
 // large (Q, K, V and O are 0.5-2 MB per image); the kernel is bound by
@@ -47,8 +48,8 @@ size_t smem_bytes(int D) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, float* __restrict__ o, int S,
-                     int D, float scale) {
+                     const T* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int D, float scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* q_s = smem;              // [kBQ][ld], pre-scaled
@@ -137,6 +138,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int qi = q0 + row;
   if (qi >= S) return;
+  if (lse != nullptr && lane == 0)
+    lse[(size_t)bh * S + qi] = m_s[row] + logf(l_s[row]);
   const float inv = 1.f / l_s[row];
   float* ob = o + base + (size_t)qi * D + lane;
 #pragma unroll
@@ -146,7 +149,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 cudaError_t flash_t(const void* q, const void* k, const void* v, float* o,
-                    int BH, int S, int D, float scale, cudaStream_t stream) {
+                    float* lse, int BH, int S, int D, float scale,
+                    cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -155,24 +159,25 @@ cudaError_t flash_t(const void* q, const void* k, const void* v, float* o,
   const dim3 grid((S + kBQ - 1) / kBQ, BH);
   flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), o, S, D, scale);
+      static_cast<const T*>(v), o, lse, S, D, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // o = softmax(q k^T * scale) v. q, k, v: (BH, S, D) of dtype, contiguous;
-// o: (BH, S, D) float32. D must be a multiple of 16 and at most 512.
-// Returns the CUDA error code (0 on success).
+// o: (BH, S, D) float32; lse: (BH, S) float32 logsumexp of each row of
+// q k^T * scale, or null to skip it. D must be a multiple of 16 and at most
+// 512. Returns the CUDA error code (0 on success).
 extern "C" int sr3_flash_attention_fwd(const void* q, const void* k,
-                                       const void* v, float* o, int BH, int S,
-                                       int D, float scale, int dtype,
-                                       void* stream) {
+                                       const void* v, float* o, float* lse,
+                                       int BH, int S, int D, float scale,
+                                       int dtype, void* stream) {
   if (D % 16 || D > kDMax || D <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == sr3::kF32)
-    return (int)flash_t<float>(q, k, v, o, BH, S, D, scale, st);
+    return (int)flash_t<float>(q, k, v, o, lse, BH, S, D, scale, st);
   if (dtype == sr3::kBF16)
-    return (int)flash_t<__nv_bfloat16>(q, k, v, o, BH, S, D, scale, st);
+    return (int)flash_t<__nv_bfloat16>(q, k, v, o, lse, BH, S, D, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
-"""Gaussian diffusion: the sr3 ancestral reverse chain.
+"""Gaussian diffusion: the sr3 training loss and ancestral reverse chain.
 
-Counterpart of ``sr3_tpu/models/diffusion.py`` (``p_sample_step``,
-``p_sample_loop``, ``super_resolution``) in ``cond_mode='sr3'``: sampling
-conditions the net on the continuous noise level
+Counterpart of ``sr3_tpu/models/diffusion.py`` (``q_sample_gamma``,
+``p_losses``, ``p_sample_step``, ``p_sample_loop``, ``super_resolution``) in
+``cond_mode='sr3'``: training draws one t per step and a continuous noise
+level per sample inside bin t; sampling conditions the net on
 ``sqrt_alphas_cumprod_prev[t+1]``. As in the JAX package the network to run
-is passed in (the trainer passes its bf16 inference copy); the class holds
-only configuration.
+is passed in (the trainer passes its float32-parameter network to the loss
+and its bf16 inference copy to the chain); the class holds only
+configuration.
 
 The JAX package compiles the chain into one ``lax.scan``; here it is a Python
 loop over t whose every operation is queued on the device without a host
@@ -40,6 +42,12 @@ def randn(shape, generator, device):
     return torch.randn(shape, generator=generator, device=device)
 
 
+def q_sample_gamma(x_start, sqrt_gamma, noise):
+    """sr3 forward noising with a per-sample sqrt-gamma of shape (b, 1)."""
+    g = sqrt_gamma.reshape(-1, 1, 1, 1)
+    return g * x_start + torch.sqrt(1.0 - g ** 2) * noise
+
+
 class GaussianDiffusion:
     """Binds a UNet to the diffusion math (sr3 conditioning)."""
 
@@ -53,6 +61,41 @@ class GaussianDiffusion:
         self.loss_type = loss_type
         self.conditional = conditional
         self.cond_mode = cond_mode
+
+    def p_losses(self, net, sched, batch, generator=None, injected=None):
+        """Training loss of ``net`` (in train mode for dropout). ``batch``
+        holds NCHW float32 'HR' (and 'SR' when conditional) in [-1, 1] on
+        the device; every draw (t, sqrt-gamma, noise, the dropout masks)
+        comes from ``generator``. ``injected`` may hold ``noise`` (like HR)
+        and ``sqrt_gamma`` (b, 1), replacing those draws (the parity-test
+        seam). Returns the scalar sum-loss / (b*c*h*w)."""
+        x_start = batch["HR"]
+        b, device = x_start.shape[0], x_start.device
+        injected = injected or {}
+        noise = injected.get("noise")
+        if noise is None:
+            noise = randn(x_start.shape, generator, device)
+        sqrt_gamma = injected.get("sqrt_gamma")
+        if sqrt_gamma is None:
+            t = torch.randint(1, sched.num_timesteps + 1, (1,),
+                              generator=generator, device=device)
+            lo = sched.sqrt_alphas_cumprod_prev[t - 1]
+            hi = sched.sqrt_alphas_cumprod_prev[t]
+            sqrt_gamma = torch.rand((b, 1), generator=generator,
+                                    device=device) * (hi - lo) + lo
+        x_noisy = q_sample_gamma(x_start, sqrt_gamma, noise)
+        net_in = (torch.cat([batch["SR"], x_noisy], 1) if self.conditional
+                  else x_noisy)
+        pred = net(net_in.contiguous(memory_format=CL), sqrt_gamma.reshape(b),
+                   generator=generator)
+        diff = noise - pred
+        if self.loss_type == "l1":
+            loss = diff.abs().sum()
+        elif self.loss_type == "l2":
+            loss = diff.square().sum()
+        else:
+            raise NotImplementedError(self.loss_type)
+        return loss / x_start.numel()
 
     def p_sample_step(self, net, sched, img, t, condition_x=None,
                       clip_denoised=True, noise=None, generator=None):

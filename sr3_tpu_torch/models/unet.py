@@ -13,9 +13,12 @@ Tensors are logical NCHW in ``torch.channels_last`` memory (physically NHWC,
 like the JAX package). The compute dtype is the input's: ``UNet.forward``
 casts to ``UNet.dtype`` once and every layer keeps it; parameters are cast
 to it where they are used (no-ops when the caller pre-cast them). Every
-Block runs kernel K1 and every SelfAttention kernels K2 and K4; the stem,
-down/up-sample convs, 1x1 convs and Linear layers are plain torch, as the
-JAX package leaves them to XLA.
+Block runs kernel K1 and every SelfAttention kernels K2 and K4 (K5 and K6
+in the backward); in training a Block with dropout runs K2, the dropout and
+a plain conv instead, as the JAX package's Block does. The stem, down/up-
+sample convs, 1x1 convs and Linear layers are plain torch, as the JAX
+package leaves them to XLA. The dropout draws come from the generator passed
+to ``UNet.forward``, the role of ``rngs={"dropout": ...}`` in JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch import nn
 
 from sr3_tpu_torch.ops.attention import attention
 from sr3_tpu_torch.ops.conv_fused import gn_silu_conv3x3
+from sr3_tpu_torch.ops.dropout import dropout
 from sr3_tpu_torch.ops.groupnorm import group_norm
 
 CL = torch.channels_last
@@ -79,7 +83,10 @@ class Block(nn.Module):
     """GroupNorm -> SiLU -> Dropout -> Conv3x3. The Sequential holds the
     parameters under the reference names (norm at .block.0, conv at
     .block.3); forward runs the fused op (kernel K1), with the ResnetBlock's
-    conditioning as its pre-affine and the skip as its residual."""
+    conditioning as its pre-affine and the skip as its residual. With
+    dropout active (training) it runs the pre-affine in x's dtype, GroupNorm
+    +SiLU (kernel K2), dropout, then a plain conv3x3 + bias and the
+    residual."""
 
     def __init__(self, dim, dim_out, groups=32, dropout=0.0):
         super().__init__()
@@ -91,14 +98,18 @@ class Block(nn.Module):
             nn.Conv2d(dim, dim_out, 3, padding=1),
         )
 
-    def forward(self, x, pre_bias=None, residual=None):
-        if self.training and self.dropout:
-            raise NotImplementedError(
-                "the dropout training path of Block is not ported yet")
+    def forward(self, x, pre_bias=None, residual=None, generator=None):
         norm, conv = self.block[0], self.block[3]
-        return gn_silu_conv3x3(
-            x, norm.weight, norm.bias, conv.weight, conv.bias, self.groups,
-            pre_bias=pre_bias, residual=residual)
+        if not (self.training and self.dropout):
+            return gn_silu_conv3x3(
+                x, norm.weight, norm.bias, conv.weight, conv.bias,
+                self.groups, pre_bias=pre_bias, residual=residual)
+        if pre_bias is not None:
+            x = x + pre_bias[:, :, None, None].to(x.dtype)
+        h = group_norm(x.contiguous(memory_format=CL), norm.weight, norm.bias,
+                       self.groups, swish=True)
+        y = _conv(conv, dropout(h, self.dropout, generator))
+        return y if residual is None else y + residual.to(y.dtype)
 
 
 class ResnetBlock(nn.Module):
@@ -112,11 +123,12 @@ class ResnetBlock(nn.Module):
         self.res_conv = (nn.Conv2d(dim, dim_out, 1) if dim != dim_out
                          else nn.Identity())
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, generator=None):
         h = self.block1(x)
         skip = (_conv(self.res_conv, x)
                 if isinstance(self.res_conv, nn.Conv2d) else x)
-        return self.block2(h, pre_bias=self.noise_func(emb), residual=skip)
+        return self.block2(h, pre_bias=self.noise_func(emb), residual=skip,
+                           generator=generator)
 
 
 class SelfAttention(nn.Module):
@@ -152,8 +164,8 @@ class ResnetBlocWithAttn(nn.Module):
         self.attn = (SelfAttention(dim_out, norm_groups=norm_groups)
                      if with_attn else None)
 
-    def forward(self, x, emb):
-        x = self.res_block(x, emb)
+    def forward(self, x, emb, generator=None):
+        x = self.res_block(x, emb, generator)
         return self.attn(x) if self.attn is not None else x
 
 
@@ -182,7 +194,8 @@ class Upsample(nn.Module):
 
 class UNet(nn.Module):
     """The denoiser backbone. forward(x (b, in_channel, h, w), noise level
-    (b,)) -> eps (b, out_channel, h, w) float32, channels_last."""
+    (b,), dropout generator) -> eps (b, out_channel, h, w) float32,
+    channels_last. Dropout is active in training mode only."""
 
     def __init__(self, in_channel=6, out_channel=3, inner_channel=32,
                  norm_groups=32, channel_mults=(1, 2, 4, 8, 8), attn_res=(8,),
@@ -240,7 +253,7 @@ class UNet(nn.Module):
         self.ups = nn.ModuleList(ups)
         self.final_conv = Block(pre_channel, out_channel, groups=norm_groups)
 
-    def forward(self, x, noise_level):
+    def forward(self, x, noise_level, generator=None):
         if x.shape[1] != self.in_channel:
             raise ValueError(f"expected {self.in_channel} input channels "
                              f"(NCHW), got {tuple(x.shape)}")
@@ -251,15 +264,15 @@ class UNet(nn.Module):
         x = _conv(self.downs[0], x.to(self.dtype).contiguous(memory_format=CL))
         feats = [x]
         for layer in self.downs[1:]:
-            x = layer(x, emb) if isinstance(layer, ResnetBlocWithAttn) \
-                else layer(x)
+            x = layer(x, emb, generator) \
+                if isinstance(layer, ResnetBlocWithAttn) else layer(x)
             feats.append(x)
         for layer in self.mid:
-            x = layer(x, emb)
+            x = layer(x, emb, generator)
         for layer in self.ups:
             if isinstance(layer, ResnetBlocWithAttn):
                 x = torch.cat([x, feats.pop()], dim=1)
-                x = layer(x.contiguous(memory_format=CL), emb)
+                x = layer(x.contiguous(memory_format=CL), emb, generator)
             else:
                 x = layer(x)
         return self.final_conv(x).float()

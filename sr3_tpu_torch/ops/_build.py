@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``sr3_tpu_torch/csrc``).
 
 The kernels are CUDA C++ for Hopper (``sm_90a``) with a plain C interface.
-At first use they are compiled by ``nvcc`` into one shared library, keyed on
-a hash of the sources and flags, under ``sr3_tpu_torch/_build/`` (ignored by
-git), and loaded with ctypes. Nothing is built when a module is imported,
+At first use each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library, keyed
+on a hash of the sources and flags, under ``sr3_tpu_torch/_build/`` (ignored
+by git), and loaded with ctypes. Nothing is built when a module is imported,
 and CPU tensors never reach this module: the op wrappers dispatch CPU inputs
 to their plain PyTorch versions.
 """
@@ -24,10 +25,9 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-lineinfo")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,8 +43,12 @@ _SIGNATURES = {
     # x, pre_scale, pre_bias, gamma, beta, w, bias, res, y, workspace, B, H,
     # W, Cin, Cout, G, eps, dtype, stream
     "sr3_gn_silu_conv3x3": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
-    # q, k, v, o, BH, S, D, scale, dtype, stream
-    "sr3_flash_attention_fwd": ([_P] * 4 + [_I] * 3 + [_F, _I, _P], _I),
+    # q, k, v, o, lse, BH, S, D, scale, dtype, stream
+    "sr3_flash_attention_fwd": ([_P] * 5 + [_I] * 3 + [_F, _I, _P], _I),
+    # q, k, v, g, lse, dsum, dk, dv, BH, S, D, scale, dtype, stream
+    "sr3_flash_attention_bwd_dkv": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
+    # q, k, v, g, lse, dsum, dq, BH, S, D, scale, dtype, stream
+    "sr3_flash_attention_bwd_dq": ([_P] * 7 + [_I] * 3 + [_F, _I, _P], _I),
 }
 
 _lib = None
@@ -106,20 +110,27 @@ def build():
         )
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", o, p]
+                for p, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [" ".join(c) + "\n" + log
+                  for c, proc, log in zip(cmds, procs, logs) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed building the sr3_tpu_torch "
+                               "kernels:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *GENCODE, "-shared", "-o", lib, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed building the sr3_tpu_torch kernels:\n"
-                + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError("nvcc failed linking the sr3_tpu_torch kernels:\n"
+                               + " ".join(link) + "\n" + proc.stdout
+                               + proc.stderr)
+        os.replace(lib, out)  # atomic: a concurrent loader never sees half
     return out
 
 
@@ -156,3 +167,10 @@ def stream_of(t):
 def ptr(t):
     """Device pointer of a tensor, or None (NULL) for None."""
     return None if t is None else t.data_ptr()
+
+
+def needs_grad(*tensors):
+    """Whether autograd must record an op on these tensors (None skipped):
+    the wrappers then go through their autograd Function."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

@@ -6,9 +6,12 @@ residual add of the dispatcher): optional per-(batch, channel) pre-affine
 ``a*x + b`` in x's dtype, one-pass float32 GroupNorm, SiLU, cast to x's
 dtype, conv3x3 with padding 1 and bias, then the residual.
 ``gn_silu_conv3x3`` runs it for a CPU tensor and launches the Hopper kernel
-for a CUDA tensor. Activations are logical NCHW in ``torch.channels_last``
-memory; the conv weight is torch's (Cout, Cin, 3, 3), also channels_last
-(physically (Cout, 3, 3, Cin), the layout the kernel reads).
+for a CUDA tensor. It is differentiable: as ``_fused_fwd_bwd`` does, the
+backward recomputes the plain version under autograd (the residual's
+gradient is the output gradient). Activations are logical NCHW in
+``torch.channels_last`` memory; the conv weight is torch's (Cout, Cin, 3,
+3), also channels_last (physically (Cout, 3, 3, Cin), the layout the kernel
+reads).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def _f32_or_none(t, shape, name):
         return None
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    return t.detach().float().contiguous()
+    return t.float().contiguous()
 
 
 def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
@@ -65,6 +68,14 @@ def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
         if tuple(residual.shape) != (b, cout, h, w):
             raise ValueError(f"residual must be {(b, cout, h, w)}, got "
                              f"{tuple(residual.shape)}")
+    args = (x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual)
+    if _build.needs_grad(*args):
+        return _GnSiluConv3x3.apply(*args, num_groups, eps)
+    return _fwd(*args, num_groups, eps)
+
+
+def _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual,
+         num_groups, eps):
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(
             x, gn_weight, gn_bias, weight, bias, num_groups, eps,
@@ -72,7 +83,9 @@ def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
     if x.device.type != "cuda":
         raise ValueError(f"gn_silu_conv3x3 runs on cpu or cuda, not {x.device}")
 
-    wk = weight.detach().to(x.dtype)
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    wk = weight.to(x.dtype)
     if not wk.permute(0, 2, 3, 1).is_contiguous():
         raise ValueError("conv weight must be in torch.channels_last memory "
                          "(physically (Cout, 3, 3, Cin))")
@@ -87,9 +100,9 @@ def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
     ws = stats_workspace(lib, x)
     ps = _f32_or_none(pre_scale, (b, cin), "pre_scale")
     pb = _f32_or_none(pre_bias, (b, cin), "pre_bias")
-    cb = None if bias is None else bias.detach().float().contiguous()
-    gamma = gn_weight.detach().float().contiguous()
-    beta = gn_bias.detach().float().contiguous()
+    cb = None if bias is None else bias.float().contiguous()
+    gamma = gn_weight.float().contiguous()
+    beta = gn_bias.float().contiguous()
     y = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     ptr = _build.ptr
@@ -102,3 +115,34 @@ def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
     _build.check(err, "sr3_gn_silu_conv3x3")
     counter.n += 1
     return y
+
+
+class _GnSiluConv3x3(torch.autograd.Function):
+    """Counterpart of ``_fused_fwd_bwd``: kernel forward; the backward is
+    autograd through the plain version, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias,
+                residual, num_groups, eps):
+        ctx.save_for_backward(x, gn_weight, gn_bias, weight, bias, pre_scale,
+                              pre_bias)
+        ctx.cfg = (num_groups, eps)
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        return _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias,
+                    residual, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            x, gw, gb, w, cb, ps, pb = leaves
+            y = gn_silu_conv3x3_plain(x, gw, gb, w, cb, *ctx.cfg,
+                                      pre_scale=ps, pre_bias=pb)
+            wrt = [t for t in leaves if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+        out = [next(grads) if t is not None and t.requires_grad else None
+               for t in leaves]
+        dres = g.to(ctx.residual_dtype) if ctx.needs_input_grad[7] else None
+        return (*out, dres, None, None)

@@ -1,0 +1,30 @@
+"""Plain dropout with an explicit generator.
+
+Counterpart of ``sr3_tpu/ops/dropout.py`` in its plain (mask-saving) form:
+its mask-recompute variant was measured to change nothing on the TPU, and
+autograd here saves the boolean mask. Same convention as flax ``nn.Dropout``
+and the reference's ``nn.Dropout``: keep = 1 - rate, kept values divided by
+keep (in x's dtype), dropped ones 0. The keep-mask is drawn by
+``dropout_mask`` alone, so a test can substitute its own masks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dropout_mask(x, keep, generator=None):
+    """Boolean mask of x's shape, device and memory layout, True with
+    probability ``keep``, drawn from ``generator``."""
+    u = torch.empty_like(x, dtype=torch.float32)
+    return u.uniform_(generator=generator) < keep
+
+
+def dropout(x, rate, generator=None):
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = dropout_mask(x, keep, generator)
+    scale = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))

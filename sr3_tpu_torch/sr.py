@@ -1,0 +1,99 @@
+"""Super-resolution training entry point of the port, CLI-compatible with
+the root sr.py's train phase.
+
+  python -m sr3_tpu_torch.sr -p train -c configs/sr_sr3_16_128.json [-debug]
+
+Builds the train and val datasets, the trainer (resuming from
+``path.resume_state`` when set) and runs ``train_loop`` with in-training
+validation every ``train.val_freq`` steps. The device is CUDA;
+``SR3_PLATFORM=cpu`` runs it on the CPU. The val phase (``evaluate_sr``) is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import logging
+
+import sr3_tpu_torch.utils.config as Config
+from sr3_tpu_torch.data.loader import create_dataloader
+from sr3_tpu_torch.training.evaluation import validate_in_train
+from sr3_tpu_torch.training.loops import train_loop
+from sr3_tpu_torch.training.trainer import create_model
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", type=str,
+                        default="configs/sr_sr3_16_128.json")
+    parser.add_argument("-p", "--phase", type=str, choices=["train"],
+                        default="train")
+    parser.add_argument("-gpu", "--gpu_ids", type=str, default=None)
+    parser.add_argument("-debug", "-d", action="store_true")
+    parser.add_argument("-enable_wandb", action="store_true")
+    parser.add_argument("-log_wandb_ckpt", action="store_true")
+    parser.add_argument("-log_eval", action="store_true")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    opt = Config.dict_to_nonedict(Config.parse(args))
+
+    Config.setup_logger(None, opt["path"]["log"], "train", screen=True)
+    Config.setup_logger("val", opt["path"]["log"], "val")
+    logger = logging.getLogger("base")
+    logger.info(Config.dict2str(opt))
+
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        SummaryWriter = None
+    tb_logger = (SummaryWriter(log_dir=opt["path"]["tb_logger"])
+                 if SummaryWriter else None)
+    wandb_logger = None
+    if opt["enable_wandb"]:
+        import wandb
+
+        from sr3_tpu.utils.wandb_logger import WandbLogger
+
+        wandb_logger = WandbLogger(opt)
+        wandb.define_metric("validation/val_step")
+        wandb.define_metric("epoch")
+        wandb.define_metric("validation/*", step_metric="val_step")
+
+    # sr3_tpu.data decodes PNGs with Pillow; imported only where used
+    from sr3_tpu.data.loader import create_dataset
+
+    train_set = create_dataset(opt["datasets"]["train"], "train")
+    train_loader = create_dataloader(train_set, opt["datasets"]["train"],
+                                     "train")
+    val_set = create_dataset(opt["datasets"]["val"], "val")
+    logger.info("Initial Dataset Finished")
+
+    trainer = create_model(opt)
+    trainer.print_network()
+    logger.info("Initial Model Finished")
+    if opt["path"]["resume_state"]:
+        logger.info("Resuming training from epoch: {}, iter: {}.".format(
+            trainer.begin_epoch, trainer.begin_step))
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   schedule_phase="train")
+
+    val_counter = itertools.count()
+
+    def on_validate(current_step, current_epoch):
+        avg_psnr = validate_in_train(trainer, val_set, opt, current_step,
+                                     current_epoch, tb_logger=tb_logger,
+                                     wandb_logger=wandb_logger)
+        if wandb_logger:
+            wandb_logger.log_metrics({"validation/val_psnr": avg_psnr,
+                                      "validation/val_step": next(val_counter)})
+
+    train_loop(trainer, train_loader, opt, on_validate, tb_logger=tb_logger,
+               wandb_logger=wandb_logger)
+
+
+if __name__ == "__main__":
+    main()

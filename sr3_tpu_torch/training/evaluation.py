@@ -1,7 +1,8 @@
 """Grouped inference over a stream of images.
 
-Counterpart of ``sr3_tpu/training/evaluation.py`` for the serving path
-(``per_image``, ``GroupedEvaluator.run_sr``, ``_group_size``, ``infer_sr``).
+Counterpart of ``sr3_tpu/training/evaluation.py`` for the serving path and
+in-training validation (``per_image``, ``GroupedEvaluator.run_sr``,
+``_group_size``, ``infer_sr``, ``validate_in_train``).
 Images run ``G`` at a time through one batched reverse chain. Each image's
 whole noise stream comes from its own ``torch.Generator`` seeded from
 (base seed, global image index) -- the role ``fold_in`` plays in the JAX
@@ -112,3 +113,48 @@ def infer_sr(trainer, dataset, opt, wandb_logger=None):
     if log_infer:
         wandb_logger.log_eval_table(commit=True)
     logger.info("Inference wrote %d images to %s", idx, result_path)
+
+
+def validate_in_train(trainer, val_set, opt, current_step, current_epoch,
+                      tb_logger=None, wandb_logger=None):
+    """In-training validation (reference sr.py:103-154): val-schedule SR
+    over the val set, per-image hr/sr/lr/inf PNGs and TB/W&B panels; returns
+    the average PSNR. Switches the schedule train -> val -> train."""
+    result_path = os.path.join(opt["path"]["results"], str(current_epoch))
+    os.makedirs(result_path, exist_ok=True)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
+                                   schedule_phase="val")
+    ev = GroupedEvaluator(trainer, _group_size(opt, len(val_set)))
+    avg_psnr, idx = 0.0, 0
+    for item, sr in ev.run_sr(per_image(val_set), continous=False):
+        idx += 1
+        sr_img = Metrics.tensor2img(sr)
+        hr_img = Metrics.tensor2img(item["HR"])
+        lr_img = Metrics.tensor2img(item["LR"])
+        fake_img = Metrics.tensor2img(item["SR"])
+        for img, tag in ((hr_img, "hr"), (sr_img, "sr"), (lr_img, "lr"),
+                         (fake_img, "inf")):
+            Metrics.save_img(img,
+                             f"{result_path}/{current_step}_{idx}_{tag}.png")
+        panel = np.concatenate((fake_img, sr_img, hr_img), axis=1)
+        if tb_logger:
+            tb_logger.add_image(f"Iter_{current_step}",
+                                np.transpose(panel, [2, 0, 1]), idx)
+        if wandb_logger:
+            wandb_logger.log_image(f"validation_{idx}", panel)
+        avg_psnr += Metrics.calculate_psnr(sr_img, hr_img)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   schedule_phase="train")
+    if idx == 0:
+        # an empty val set must not end a training run with ZeroDivisionError
+        logger.warning("Validation produced 0 images (empty val set at %s?) "
+                       "— skipping PSNR.", opt["datasets"]["val"]["dataroot"])
+        return float("nan")
+    avg_psnr /= idx
+    logger.info("# Validation # PSNR: {:.4e}".format(avg_psnr))
+    logging.getLogger("val").info(
+        "<epoch:{:3d}, iter:{:8,d}> psnr: {:.4e}".format(
+            current_epoch, current_step, avg_psnr))
+    if tb_logger:
+        tb_logger.add_scalar("psnr", avg_psnr, current_step)
+    return avg_psnr

@@ -1,11 +1,16 @@
-"""Trainer, inference subset: model, schedules, weights, batched sampling.
+"""Trainer: model, schedules, optimizer, EMA, checkpoints, batched sampling.
 
-Counterpart of ``sr3_tpu/training/trainer.py`` for the serving path:
-``create_model``, ``set_new_noise_schedule``, ``load_network`` (from a
-reference-format ``{resume_state}_gen.pth``), the bf16 pre-cast of the
-parameters with two or more dimensions for sampling (``_eval_params``), and
-``test_batched``. The training step, optimizer, EMA and checkpoint saving
-are not ported yet.
+Counterpart of ``sr3_tpu/training/trainer.py``: ``create_model``,
+``set_new_noise_schedule``, the train phase (``feed_data``,
+``optimize_parameters``: one step of ``p_losses`` -> backward -> Adam, then
+the EMA; ``get_current_log``; ``finetune_norm``), checkpoints
+(``save_network`` / ``load_network`` with the reference's
+``I{iter}_E{epoch}_{gen,opt}.pth`` names), the bf16 sampling copy
+(``_eval_params``) and ``test_batched``. Parameters are float32; the UNet
+computes in its own dtype (bf16 on CUDA). Every training draw comes from one
+``torch.Generator`` on the trainer's device, seeded from the config's seed.
+Not ported yet: the bf16 Adam first moment (``train.optimizer.mu_dtype``)
+and the device-resident dataset with its fused K-step dispatch.
 """
 
 from __future__ import annotations
@@ -25,23 +30,68 @@ from sr3_tpu_torch.utils.torch_compat import load_gen_pth
 logger = logging.getLogger("base")
 
 
+def finetune_norm(net):
+    """Freeze every parameter whose name does not mention 'transformer' and
+    zero-init those that do (reference model/model.py:26-35). Returns the
+    trainable parameters."""
+    trainable = []
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "transformer" in name.lower():
+                p.zero_()
+                trainable.append(p)
+            else:
+                p.requires_grad_(False)
+    return trainable
+
+
 class Trainer:
-    """Owns the diffusion model, its device, schedules and host RNG."""
+    """Owns the diffusion model, its device, schedules, optimizer and RNGs."""
 
     def __init__(self, opt, device=None):
         self.opt = opt
         self.device = torch.device(device) if device is not None \
             else resolve_device()
+        self.phase = opt.get("phase", "train")
         seed = opt.get("seed", 0) or 0
         self.diffusion = define_G(opt, device=self.device, seed=seed)
         self.netG = self.diffusion.denoise_fn
+        self.conditional = self.diffusion.conditional
         # host RNG: the evaluator draws its base seed from it, as the JAX
         # trainer splits its key
         self.rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.schedules = {}
         self.schedule_phase = None
         self.sched = None
         self._eval_net = None
+
+        ema_opt = (opt.get("train") or {}).get("ema_scheduler") or {}
+        self.use_ema = bool(ema_opt.get("use_ema", False))
+        self.ema_decay = float(ema_opt.get("ema_decay", 0.9999))
+        self.step_start_ema = int(ema_opt.get("step_start_ema", 5000))
+
+        self.optimizer = None
+        if self.phase == "train":
+            opt_cfg = opt["train"]["optimizer"]
+            if opt_cfg.get("mu_dtype") == "bfloat16":
+                raise NotImplementedError(
+                    "train.optimizer.mu_dtype 'bfloat16' is not ported yet")
+            if opt["model"].get("finetune_norm"):
+                params = finetune_norm(self.netG)
+            else:
+                params = list(self.netG.parameters())
+            # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8
+            if params:
+                self.optimizer = torch.optim.Adam(params, lr=opt_cfg["lr"])
+        self.ema = ({n: p.detach().clone()
+                     for n, p in self.netG.named_parameters()}
+                    if self.use_ema else None)
+        self.step = 0
+        self.begin_step = 0
+        self.begin_epoch = 0
+        self.log_dict = {}
+        self.data = None
         self.load_network()
 
     def set_new_noise_schedule(self, schedule_opt, schedule_phase="train"):
@@ -52,29 +102,82 @@ class Trainer:
                 self.schedules[key] = make_schedule(schedule_opt, self.device)
             self.sched = self.schedules[key]
 
-    def load_network(self):
-        """Load ``{path.resume_state}_gen.pth`` when a resume_state is set."""
-        load_path = (self.opt.get("path") or {}).get("resume_state")
-        if not load_path:
+    # ------------------------------------------------------------ training
+
+    def feed_data(self, data):
+        """Host batch (numpy NHWC arrays) -> NCHW float32 tensors in
+        channels_last memory on the device; other entries pass through."""
+        self.data = {
+            k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            .permute(0, 3, 1, 2).to(self.device, non_blocking=True)
+            if isinstance(v, np.ndarray) and v.ndim == 4 else v
+            for k, v in data.items()
+        }
+
+    def optimize_parameters(self):
+        """One training step: loss, backward, Adam, EMA (reference
+        model/model.py:48-58). The loss stays on the device until a log
+        line reads it."""
+        self.netG.train()
+        keys = ("HR", "SR") if self.conditional else ("HR",)
+        batch = {k: self.data[k] for k in keys}
+        train = self.optimizer is not None
+        if train:
+            self.optimizer.zero_grad(set_to_none=True)
+        with torch.set_grad_enabled(train):
+            loss = self.diffusion.p_losses(self.netG, self.sched, batch,
+                                           self.generator)
+        if train:
+            loss.backward()
+            self.optimizer.step()
+        self._update_ema()
+        self.step += 1
+        self.log_dict["l_pix"] = loss.detach()
+
+    def _update_ema(self):
+        """EMA of the parameters after the update: a copy before
+        ``step_start_ema``, decay after it; the step counted before its
+        increment (JAX trainer.py:212-225)."""
+        if not self.use_ema:
             return
-        gen_path = os.path.abspath(f"{load_path}_gen.pth")
-        logger.info("Loading pretrained model for G [%s] ...", gen_path)
-        load_gen_pth(self.netG, gen_path)
-        self._eval_net = None
+        ema = list(self.ema.values())
+        params = [p.detach() for p in self.netG.parameters()]
+        if self.step >= self.step_start_ema:
+            torch._foreach_mul_(ema, self.ema_decay)
+            torch._foreach_add_(ema, params, alpha=1.0 - self.ema_decay)
+        else:
+            torch._foreach_copy_(ema, params)
+
+    def get_current_log(self):
+        return {k: float(v) for k, v in self.log_dict.items()}
+
+    # ----------------------------------------------------------- inference
 
     def _eval_params(self):
-        """The network to sample with. In bf16 it is a copy whose parameters
-        with 2+ dimensions (conv and linear weights) are pre-cast to bf16
-        once, so a chain step reads them at half the bytes; 1-D parameters
-        (GroupNorm scale/shift, biases) stay float32."""
-        if self.netG.dtype != torch.bfloat16:
-            return self.netG
-        if self._eval_net is None:
-            net = copy.deepcopy(self.netG)
-            for p in net.parameters():
-                if p.dim() >= 2:
-                    p.data = p.data.to(torch.bfloat16)
-            self._eval_net = net.eval()
+        """The network to sample with, in eval mode, holding the current
+        weights (the EMA weights when EMA is on). In bf16, or with EMA, it
+        is a copy refreshed from those weights on every call (as the JAX
+        trainer rebuilds its parameter tree); in bf16 its parameters with
+        2+ dimensions (conv and linear weights) are bf16, so a chain step
+        reads them at half the bytes, and 1-D parameters (GroupNorm
+        scale/shift, biases) stay float32."""
+        bf16 = self.netG.dtype == torch.bfloat16
+        if not (bf16 or self.use_ema):
+            return self.netG.eval()
+        # normal tensors even when called under inference_mode, so a later
+        # refresh outside it may write them
+        with torch.inference_mode(False), torch.no_grad():
+            if self._eval_net is None:
+                net = copy.deepcopy(self.netG).eval().requires_grad_(False)
+                if bf16:
+                    for p in net.parameters():
+                        if p.dim() >= 2:
+                            p.data = p.data.to(torch.bfloat16)
+                self._eval_net = net
+            src = (self.ema.values() if self.use_ema
+                   else (p.detach() for p in self.netG.parameters()))
+            for p, s in zip(self._eval_net.parameters(), src):
+                p.copy_(s)
         return self._eval_net
 
     def test_batched(self, xs, generators, continous=False):
@@ -84,10 +187,10 @@ class Trainer:
         (G,S,h,w,c) process frames when ``continous``."""
         x = torch.as_tensor(np.asarray(xs, np.float32)).permute(0, 3, 1, 2)
         x = x.to(self.device).contiguous(memory_format=torch.channels_last)
+        net = self._eval_params()
         with torch.inference_mode():
             out = self.diffusion.p_sample_loop(
-                self._eval_params(), self.sched, x, generators,
-                continuous=bool(continous))
+                net, self.sched, x, generators, continuous=bool(continous))
         g = x.shape[0]
         if continous:
             out = out.reshape(-1, g, *out.shape[1:]).permute(1, 0, 3, 4, 2)
@@ -98,6 +201,51 @@ class Trainer:
     def print_network(self):
         logger.info("Network G structure: UNet(cond_mode=sr3), with "
                     "parameters: %s", "{:,d}".format(count_params(self.netG)))
+
+    # ---------------------------------------------------------- checkpoints
+
+    def save_network(self, epoch, iter_step):
+        """``I{iter}_E{epoch}_gen.pth``: the UNet state_dict under the
+        reference names; ``..._opt.pth``: epoch, iter, the optimizer state
+        and, with EMA on, the EMA weights (reference model/model.py:124-144).
+        """
+        prefix = os.path.join(self.opt["path"]["checkpoint"],
+                              f"I{iter_step}_E{epoch}")
+        gen_path = f"{prefix}_gen.pth"
+        torch.save({k: v.detach().cpu()
+                    for k, v in self.netG.state_dict().items()}, gen_path)
+        state = {"epoch": epoch, "iter": iter_step, "scheduler": None,
+                 "optimizer": (self.optimizer.state_dict()
+                               if self.optimizer is not None else None)}
+        if self.use_ema:
+            state["ema"] = {k: v.cpu() for k, v in self.ema.items()}
+        torch.save(state, f"{prefix}_opt.pth")
+        logger.info("Saved model in [%s] ...", gen_path)
+
+    def load_network(self):
+        """Resume from the ``path.resume_state`` prefix: its ``_gen.pth``,
+        and in the train phase its ``_opt.pth`` (optimizer, EMA, step and
+        epoch counters) when present."""
+        load_path = (self.opt.get("path") or {}).get("resume_state")
+        if not load_path:
+            return
+        gen_path = os.path.abspath(f"{load_path}_gen.pth")
+        logger.info("Loading pretrained model for G [%s] ...", gen_path)
+        load_gen_pth(self.netG, gen_path)
+        ema = None
+        opt_path = os.path.abspath(f"{load_path}_opt.pth")
+        if self.phase == "train" and os.path.exists(opt_path):
+            state = torch.load(opt_path, map_location=self.device,
+                               weights_only=True)
+            self.begin_step = self.step = int(state["iter"])
+            self.begin_epoch = int(state["epoch"])
+            if self.optimizer is not None and state.get("optimizer"):
+                self.optimizer.load_state_dict(state["optimizer"])
+            ema = state.get("ema")
+        if self.use_ema:
+            with torch.no_grad():
+                for name, p in self.netG.named_parameters():
+                    self.ema[name].copy_(p if ema is None else ema[name])
 
 
 def create_model(opt, device=None) -> Trainer:

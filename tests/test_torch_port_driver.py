@@ -1,5 +1,6 @@
-"""The port's inference CLI, its independence from JAX, and chip_smoke.py's
-refusal to run without a card, as real subprocesses on the CPU."""
+"""The port's inference and training CLIs, its independence from JAX, and
+chip_smoke.py's refusal to run without a card, as real subprocesses on the
+CPU."""
 
 import ast
 import json
@@ -7,6 +8,8 @@ import os
 import subprocess
 import sys
 import textwrap
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "dataset", "fixtures_16_128")
@@ -70,9 +73,33 @@ def test_infer_cli_writes_every_output(tmp_path):
     assert "End of Model Inference." in log
 
 
+def test_train_cli_logs_validates_and_saves(tmp_path):
+    """-debug: batch 2, T=10, print and validate every 2 steps, checkpoint
+    every 3, 3 val images; the tiny config trains 4 steps with dropout."""
+    opt = _config()
+    opt["phase"] = "train"
+    opt["model"]["unet"]["dropout"] = 0.2
+    cfg = tmp_path / "port.json"
+    cfg.write_text(json.dumps(opt))
+    _run(["-m", "sr3_tpu_torch.sr", "-p", "train", "-c", str(cfg), "-debug"],
+         tmp_path)
+    (exp,) = (tmp_path / "experiments").iterdir()
+    log = (exp / "logs" / "train.log").read_text()
+    losses = [float(line.split("l_pix: ")[1].split()[0])
+              for line in log.splitlines() if "l_pix: " in line]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert log.count("# Validation # PSNR: ") == 2
+    assert "End of training." in log
+    ckpt = {p.name for p in (exp / "checkpoint").iterdir()}
+    assert ckpt == {"I3_E1_gen.pth", "I3_E1_opt.pth"}
+    results = {p.name for p in (exp / "results" / "1").iterdir()}
+    assert {f"2_{i}_{tag}.png" for i in (1, 2, 3)
+            for tag in ("sr", "hr", "lr", "inf")} <= results
+
+
 def test_port_imports_no_jax(tmp_path):
     script = textwrap.dedent(f"""
-        import importlib, json, pkgutil, sys
+        import importlib, json, os, pkgutil, sys
         import numpy as np
         import sr3_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
@@ -80,7 +107,9 @@ def test_port_imports_no_jax(tmp_path):
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        from sr3_tpu_torch.data.loader import DataLoader
         from sr3_tpu_torch.training.evaluation import GroupedEvaluator
+        from sr3_tpu_torch.training.loops import train_loop
         from sr3_tpu_torch.training.trainer import create_model
         opt = json.loads({json.dumps(_config())!r})
         opt["model"]["diffusion"]["image_size"] = 16
@@ -91,6 +120,15 @@ def test_port_imports_no_jax(tmp_path):
         item = {{"SR": np.zeros((16, 16, 3), np.float32)}}
         (_, frames), = GroupedEvaluator(trainer, 1).run_sr([item], True)
         assert frames.shape == (11, 16, 16, 3) and np.isfinite(frames).all()
+        opt["phase"] = "train"
+        opt["path"]["checkpoint"] = "."
+        opt["model"]["unet"]["dropout"] = 0.2
+        trainer = create_model(opt)
+        trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"])
+        data = [{{"HR": np.zeros((16, 16, 3), np.float32),
+                  "SR": np.zeros((16, 16, 3), np.float32)}}] * 2
+        train_loop(trainer, DataLoader(data, 2), opt, lambda s, e: None)
+        assert trainer.step == 4 and os.path.isfile("I4_E4_gen.pth")
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                          "orbax")]

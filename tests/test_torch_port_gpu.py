@@ -6,22 +6,27 @@ imports it), run them with
 
   python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
-Tolerances, relative to max|plain|: float32 1e-4 for K1 and K4 and 1e-5 for
-K2 (float32 sums in another order); bfloat16 2e-2 for K1 and K2 (the plain
-version rounds intermediate results to bf16, 2^-8 relative each, where a
-kernel rounds once) and 1e-4 for K4 (both sides compute in float32 from the
-same inputs). The reasons are spelled out in each kernel's source header.
+Tolerances, relative to max|plain|: float32 1e-4 for K1, K4, K5 and K6 and
+1e-5 for K2 (float32 sums in another order); bfloat16 2e-2 for K1 and K2
+(the plain version rounds intermediate results to bf16, 2^-8 relative each,
+where a kernel rounds once) and 1e-4 for K4, K5 and K6 (both sides compute
+in float32 from the same inputs). The reasons are spelled out in each
+kernel's source header. The autograd Functions against autograd of the
+plain versions: float32 1e-4; bfloat16 2e-2 (each side rounds its input
+gradients to bf16 once, and K2's hand backward differs from autograd's
+composition in where it rounds).
 """
 
 import pytest
 import torch
 
+from sr3_tpu_torch.models.unet import UNet
 from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
 
 pytestmark = pytest.mark.gpu
 CL = torch.channels_last
-TOL = {torch.float32: {"k1": 1e-4, "k2": 1e-5, "k4": 1e-4},
-       torch.bfloat16: {"k1": 2e-2, "k2": 2e-2, "k4": 1e-4}}
+TOL = {torch.float32: {"k1": 1e-4, "k2": 1e-5, "k4": 1e-4, "grad": 1e-4},
+       torch.bfloat16: {"k1": 2e-2, "k2": 2e-2, "k4": 1e-4, "grad": 2e-2}}
 
 
 @pytest.fixture
@@ -112,6 +117,89 @@ def test_k4_matches_plain(gen, dtype, bh, seq, d):
     assert attention.counter.n == n + 1 and out.dtype == torch.float32
     ref = attention.attention_plain(q, k, v, d ** -0.5)
     assert rel(out, ref) <= TOL[dtype]["k4"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,seq,d", [(4, 256, 512), (4, 64, 512),
+                                      (3, 100, 64)])
+def test_k4_lse_k5_k6_match_plain(gen, dtype, bh, seq, d):
+    q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=gen)
+               .to(dtype) for _ in range(3))
+    g = torch.randn(bh, seq, d, device="cuda", generator=gen)
+    n = (attention.counter.n, attention.dkv_counter.n, attention.dq_counter.n)
+    o, lse = attention.attention_fwd(q, k, v, d ** -0.5)
+    ref_o, ref_lse = attention.attention_fwd_plain(q, k, v, d ** -0.5)
+    assert rel(o, ref_o) <= TOL[dtype]["k4"]
+    assert rel(lse, ref_lse) <= TOL[dtype]["k4"]
+    dsum = (g * o).sum(-1)
+    grads = attention.attention_bwd(q, k, v, g, lse, dsum, d ** -0.5)
+    refs = attention.attention_bwd_plain(q, k, v, g, lse, dsum, d ** -0.5)
+    assert (attention.counter.n, attention.dkv_counter.n,
+            attention.dq_counter.n) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    for out, ref in zip(grads, refs):
+        assert out.dtype == torch.float32
+        assert rel(out, ref) <= TOL[dtype]["k4"]
+
+
+def _function_case(gen, op, dtype):
+    """(wrapper call, plain call, inputs) of one autograd Function."""
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    if op == "k1":
+        args, kw = _k1_inputs(gen, dtype, 2, 64, 64, 16, 16, True)
+        kw.pop("pre_scale")
+        inputs = [args[0], args[1], args[2], args[3], args[4], kw["pre_bias"],
+                  kw["residual"]]
+        call = lambda f, t: f(*t[:5], 8, pre_bias=t[5], residual=t[6])
+        return call, conv_fused.gn_silu_conv3x3, \
+            conv_fused.gn_silu_conv3x3_plain, inputs
+    if op == "k2":
+        x = (3 * r(2, 96, 12, 12) + 1).to(dtype).contiguous(memory_format=CL)
+        inputs = [x, 1 + 0.2 * r(96), 0.1 * r(96)]
+        call = lambda f, t: f(*t, 8, swish=True)
+        return call, groupnorm.group_norm, groupnorm.group_norm_plain, inputs
+    inputs = [r(2, 100, 64).to(dtype) for _ in range(3)]
+    call = lambda f, t: f(*t, 0.125)
+    return call, attention.attention, attention.attention_plain, inputs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["k1", "k2", "k4"])
+def test_autograd_functions_match_plain_autograd(gen, op, dtype):
+    call, wrapper, plain, inputs = _function_case(gen, op, dtype)
+    grads = []
+    for f in (wrapper, plain):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = call(f, leaves)
+        w = torch.randn(out.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(1))
+        (out.float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype
+        assert rel(got, ref) <= TOL[dtype]["grad"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unet_every_parameter_gets_a_gradient_on_cuda(gen, dtype):
+    """Each kernel's autograd Function hands gradients back to the conv,
+    norm, FiLM, attention and noise-MLP parameters."""
+    net = UNet(in_channel=6, out_channel=3, inner_channel=16, norm_groups=8,
+               channel_mults=(1, 2), attn_res=(8,), res_blocks=1, dropout=0.2,
+               image_size=16, dtype=dtype)
+    net = net.to(device="cuda", memory_format=CL).train()
+    x = torch.randn(2, 6, 16, 16, device="cuda", generator=gen)
+    before = [c.n for c in (conv_fused.counter, groupnorm.counter,
+                            attention.counter, attention.dkv_counter,
+                            attention.dq_counter)]
+    out = net(x, torch.tensor([0.3, 0.8], device="cuda"), generator=gen)
+    out.square().mean().backward()
+    after = [c.n for c in (conv_fused.counter, groupnorm.counter,
+                           attention.counter, attention.dkv_counter,
+                           attention.dq_counter)]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    for name, p in net.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0, name
 
 
 def test_cuda_wrappers_raise_on_other_layouts(gen):

@@ -1,7 +1,9 @@
-"""The port's kernel ops on the CPU: each plain PyTorch version (K1, K2, K4)
-against the JAX package's XLA spec and its Pallas kernel in interpret mode,
-on the same numpy inputs; the wrappers' CPU dispatch and layout checks; the
-kernel build without nvcc.
+"""The port's kernel ops on the CPU: each plain PyTorch version (K1, K2, K4
+with its logsumexp, the K5/K6 backward) against the JAX package's XLA spec
+and its Pallas kernels in interpret mode, on the same numpy inputs; the
+gradients of the three autograd Functions against ``jax.vjp`` of the JAX
+dispatchers with the Pallas kernels (interpret mode); the wrappers' CPU
+dispatch and layout checks; the kernel build without nvcc.
 
 Tolerance: float32, atol 2e-5 -- the same math in float32 on both sides,
 only the order of the sums differs (values are O(1)).
@@ -11,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
-from sr3_tpu.ops.attention import attention_flash, attention_xla
+from sr3_tpu.ops.attention import (attention_flash, attention_flash_bwd,
+                                   attention_flash_fwd, attention_xla,
+                                   self_attention)
 from sr3_tpu.ops.conv_fused import gn_silu_conv3x3 as jax_fused
 from sr3_tpu.ops.conv_fused import gn_silu_conv3x3_xla
-from sr3_tpu.ops.groupnorm import group_norm_swish_pallas, group_norm_swish_xla
+from sr3_tpu.ops.groupnorm import (group_norm_swish, group_norm_swish_pallas,
+                                   group_norm_swish_xla)
 from sr3_tpu_torch.ops import _build, attention, conv_fused, groupnorm
 
 ATOL = 2e-5
@@ -133,17 +139,151 @@ def test_k4_plain_matches_spec_and_flash_interpret(seq, d):
     np.testing.assert_allclose(out.numpy(), np.asarray(fl), atol=ATOL, rtol=0)
 
 
+def _qkv(seed, bh, seq, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((bh, seq, d)).astype(np.float32)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("seq,d", [(64, 32), (256, 16)])
+def test_k4_lse_plain_matches_flash_fwd_interpret(seq, d):
+    q, k, v, _ = _qkv(6, 2, seq, d)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = attention.attention_fwd(*(torch.from_numpy(t) for t in (q, k, v)),
+                                     scale)
+    assert o.dtype == lse.dtype == torch.float32 and lse.shape == (2, seq)
+    ref_o, ref_lse = attention_flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), scale, interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref_o), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("seq,d", [(64, 32), (256, 16)])
+def test_k5_k6_plain_matches_flash_bwd_interpret_and_vjp(seq, d):
+    q, k, v, g = _qkv(7, 2, seq, d)
+    scale = 1.0 / np.sqrt(d)
+    tq, tk, tv, tg = (torch.from_numpy(t) for t in (q, k, v, g))
+    o, lse = attention.attention_fwd_plain(tq, tk, tv, scale)
+    dsum = (tg * o).sum(-1)
+    grads = attention.attention_bwd(tq, tk, tv, tg, lse, dsum, scale)
+    jq, jk, jv, jg = (jnp.asarray(t) for t in (q, k, v, g))
+    pal = attention_flash_bwd(jq, jk, jv, jg, jnp.asarray(lse.numpy())[..., None],
+                              jnp.asarray(dsum.numpy())[..., None], scale,
+                              interpret=True)
+    _, vjp = jax.vjp(lambda a, b, c: attention_xla(a, b, c, scale), jq, jk, jv)
+    for ours, p, x in zip(grads, pal, vjp(jg)):
+        assert ours.dtype == torch.float32
+        np.testing.assert_allclose(ours.numpy(), np.asarray(p), atol=ATOL,
+                                   rtol=0)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(x), atol=ATOL,
+                                   rtol=0)
+
+
+def _port_grads(out, inputs, g):
+    """Gradients of ``out`` against each tensor of ``inputs`` (None kept)."""
+    wrt = [t for t in inputs if t is not None]
+    grads = iter(torch.autograd.grad(out, wrt, g))
+    return [None if t is None else next(grads) for t in inputs]
+
+
+@pytest.mark.parametrize("affine,residual", [(False, False), (True, True)])
+def test_k1_function_grads_match_jax_vjp(affine, residual):
+    """Every input gradient of the K1 autograd Function against jax.vjp of
+    the dispatcher with the Pallas kernel (``_fused_fwd_bwd``)."""
+    a = _k1_inputs(8, hw=8, cin=16, cout=16, affine=affine, residual=residual)
+    rng = np.random.default_rng(9)
+    g = rng.standard_normal((2, 8, 8, 16)).astype(np.float32)
+    t = lambda v: None if v is None else torch.from_numpy(v).requires_grad_()
+    x = nchw(a["x"]).requires_grad_()
+    w = torch.from_numpy(a["k"]).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    res = None if a["res"] is None else nchw(a["res"]).requires_grad_()
+    inputs = [x, t(a["gs"]), t(a["gb"]), w, t(a["cb"]), t(a["ps"]),
+              t(a["pb"]), res]
+    out = conv_fused.gn_silu_conv3x3(*inputs[:5], 8, pre_scale=inputs[5],
+                                     pre_bias=inputs[6], residual=res)
+    assert out.grad_fn is not None
+    ours = _port_grads(out, inputs, nchw(g))
+
+    names = ["x", "gs", "gb", "k", "cb", "ps", "pb", "res"]
+    present = [n for n in names if a[n] is not None]
+
+    def f(*vals):
+        kw = dict(zip(present, vals))
+        return jax_fused(kw["x"], kw["gs"], kw["gb"], kw["k"], kw["cb"], 8,
+                         pre_scale=kw.get("ps"), pre_bias=kw.get("pb"),
+                         residual=kw.get("res"), use_pallas=True,
+                         interpret=True)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a[n]) for n in present))
+    ref = dict(zip(present, vjp(jnp.asarray(g))))
+    layout = {"x": nhwc, "res": nhwc,
+              "k": lambda t: t.permute(2, 3, 1, 0).numpy()}
+    for n, grad in zip(names, ours):
+        if a[n] is None:
+            continue
+        got = layout.get(n, lambda t: t.numpy())(grad)
+        np.testing.assert_allclose(got, np.asarray(ref[n]), atol=ATOL, rtol=0,
+                                   err_msg=n)
+
+
+@pytest.mark.parametrize("swish", [True, False])
+def test_k2_function_grads_match_jax_vjp(swish):
+    """The K2 Function's hand backward against jax.vjp of the dispatcher
+    with the Pallas kernel (``_gn_swish_fwd_bwd``)."""
+    rng = np.random.default_rng(10)
+    x = (2.0 * rng.standard_normal((2, 8, 8, 32)) + 0.5).astype(np.float32)
+    s = (1.0 + 0.2 * rng.standard_normal(32)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(32)).astype(np.float32)
+    g = rng.standard_normal((2, 8, 8, 32)).astype(np.float32)
+    inputs = [nchw(x).requires_grad_(), torch.from_numpy(s).requires_grad_(),
+              torch.from_numpy(b).requires_grad_()]
+    out = groupnorm.group_norm(*inputs, 8, swish=swish)
+    assert out.grad_fn is not None
+    dx, ds, db = _port_grads(out, inputs, nchw(g))
+    _, vjp = jax.vjp(
+        lambda a, c, e: group_norm_swish(a, c, e, 8, swish=swish,
+                                         use_pallas=True, interpret=True),
+        jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    rdx, rds, rdb = vjp(jnp.asarray(g))
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(nhwc(dx), np.asarray(rdx), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(rds), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(db.numpy(), np.asarray(rdb), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("seq,d", [(64, 32), (256, 16)])
+def test_k4_function_grads_match_jax_vjp(seq, d):
+    """The attention Function (lse forward, K5/K6 backward) against jax.vjp
+    of ``self_attention`` on its flash path (``_flash_with_vjp``)."""
+    q, k, v, g = _qkv(11, 2, seq, d)
+    scale = 1.0 / np.sqrt(d)
+    inputs = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    out = attention.attention(*inputs, scale)
+    assert out.grad_fn is not None
+    ours = _port_grads(out, inputs, torch.from_numpy(g))
+    _, vjp = jax.vjp(
+        lambda a, b, c: self_attention(a, b, c, scale, use_flash=True,
+                                       interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for got, ref in zip(ours, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                                   rtol=0)
+
+
 def test_cpu_tensors_never_count_a_launch():
-    for c in (conv_fused.counter, groupnorm.counter, attention.counter):
+    counters = (conv_fused.counter, groupnorm.counter, attention.counter,
+                attention.dkv_counter, attention.dq_counter)
+    for c in counters:
         c.n = 0
     a = _k1_inputs(5, affine=True, residual=True)
     _k1_port(a)
     x = nchw(np.ones((1, 4, 4, 16), np.float32))
     groupnorm.group_norm(x, torch.ones(16), torch.zeros(16), 8)
-    q = torch.ones(1, 16, 16)
-    attention.attention(q, q, q, 0.25)
-    assert [c.n for c in (conv_fused.counter, groupnorm.counter,
-                          attention.counter)] == [0, 0, 0]
+    q = torch.ones(1, 16, 16, requires_grad=True)
+    attention.attention(q, q, q, 0.25).sum().backward()
+    assert [c.n for c in counters] == [0] * 5
 
 
 def test_wrappers_reject_other_layouts():
