@@ -3,7 +3,8 @@
 
   python3 chip_smoke.py
 
-Phases, each printing its own line and its seconds; any failure exits 1:
+Phases, each printing its own line and its seconds; any failure exits 1.
+The SR3 16->128 paths (configs/sr_sr3_16_128.json):
   1. device: name and power limit from nvidia-smi, torch and CUDA versions;
      TF32 off for the float32 phases;
   2. build: compile sr3_tpu_torch/csrc with nvcc (one process per source);
@@ -22,27 +23,56 @@ Phases, each printing its own line and its seconds; any failure exits 1:
      inputs; launch counters are zeroed just before and every forward
      kernel must have launched; frames must be finite and 1 + n_snap per
      image;
-  6. training path: the train-phase Trainer of the same config (batch 4,
-     bf16 compute, float32 parameters, dropout 0.2, Adam 1e-4) through
-     train_loop for TRAIN_STEPS steps on seeded synthetic (HR, SR) batches;
-     counters zeroed just before, and K1, K2, K4, K5 and K6 must all have
-     launched; every loss finite, every parameter with a finite gradient,
-     every parameter moved;
-  7. training gradients: one float32 batch-1 loss and backward of the
+  6. timing (printed, not gated): ms per UNet step of the T=2000 chain at
+     batch 8 in bf16 and the 2000-step images/s extrapolated from it; ms per
+     call of K1, K2 and K4 against their plain versions;
+  7. training path: the train-phase Trainer (batch 4, bf16 compute, float32
+     parameters, dropout 0.2, Adam 1e-4) through train_loop for TRAIN_STEPS
+     steps on seeded synthetic (HR, SR) batches; counters zeroed just
+     before, and K1, K2, K4, K5 and K6 must all have launched; every loss
+     finite, every parameter with a finite gradient, every parameter moved;
+  8. training gradients: one float32 batch-1 loss and backward of the
      full-width UNet with injected noise, sqrt-gamma and the same dropout
      draws, kernels against the plain ops swapped into the UNet module;
      loss and every parameter's gradient within GRAD_TOL;
-  8. timing (printed, not gated): ms per UNet step of the T=2000 chain at
-     batch 8 in bf16 and the 2000-step images/s extrapolated from it; ms per
-     train step at batch 4 in bf16 (median of TIME_STEPS) and train
-     images/s; ms per call of each kernel against its plain version at
-     main-path shapes.
+  9. training timing: ms per train step at batch 4 (median of TIME_STEPS)
+     and train images/s; K4 with its logsumexp, K5 and K6 against the plain
+     versions.
+The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
+ 10. K3 statistics: K3 against float64 sums and gn_stats_plain (K3_TOL) at
+     the path's 512^2 and 256^2 maps and a ragged one, float32 and bf16; the
+     statistics route of group_norm against group_norm_plain, forward and
+     input gradients;
+ 11. long-sequence attention: K4 with its logsumexp, K5 and K6 against the
+     plain versions at 4096 and 1024 tokens (head_dim 512) and at 16384
+     tokens (head_dim 256);
+ 12. 64->512 training path: the full-width train-phase Trainer (70.0M
+     parameters, batch 2, bf16, dropout 0.2, remat) through train_loop for
+     TRAIN_STEPS_512 steps; counters zeroed just before; K1-K6 launched, K3
+     and K4-K6 exactly as often as the model's sites say (twice per
+     forward with remat); finite losses, every parameter with a finite
+     gradient that moved;
+ 13. 64->512 training gradients: float32 batch 1, kernels against the plain
+     ops (GRAD_TOL), and remat on against remat off (REMAT_TOL);
+ 14. 64->512 training timing: median train step (CUDA events), train
+     images/s, peak memory, and a torch.profiler window (device time by op,
+     device busy share);
+ 15. 64->512 serving path: GroupedEvaluator.run_sr on 2 images, T=10, 512^2
+     bf16, frames finite, K1, K2 and K4 launched; median ms of a batch-8
+     p_sample_step at 512^2 (the config's val batch);
+ 16. 64->512 kernel timing: each kernel at the path's shapes (bf16, batch
+     2; K4-K6 also at 16384 tokens) beside its plain version and the one
+     PyTorch call that computes the same function where there is one
+     (library_ms; the port never calls it), each as CUDA-event ms per call
+     and as the profiler's device ms per call; and the least time the card
+     could take (bound_ms: the larger of bytes over 3.35 TB/s and operations
+     over 989 TFLOP/s). The JSON line carries the first shape of each.
 
 Then one JSON line with every kernel's route, source, the TPU kernel it
-replaces, launches in phase 6 (and in phase 5), max error and times, and
-last the line {"ok": true, "device": {...}}. Without a CUDA device, or
-without the rest of the repository beside it, it exits non-zero and prints
-no result.
+replaces, launches in phase 12 (and on the other paths), max error and
+times, and last the line {"ok": true, "device": {...}}. Without a CUDA
+device, or without the rest of the repository beside it, it exits non-zero
+and prints no result.
 """
 
 import json
@@ -87,6 +117,29 @@ K4_SHAPES = [(256, 512), (64, 512)]        # (seq, head_dim)
 # (batch*heads, seq, head_dim) of K4-with-lse, K5 and K6 in the train step
 # at batch 4, and a ragged shape
 BWD_SHAPES = [(4, 256, 512), (4, 64, 512), (3, 100, 64)]
+
+# The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json: 70.0M
+# parameters, 16 norm groups, attention at 64x64 and 32x32, remat, dropout
+# 0.2), batch 2, and its val batch 8
+CONFIG_512 = os.path.join(ROOT, "configs", "sr_sr3_64_512_attn.json")
+TRAIN_STEPS_512 = 3
+TIME_STEPS_512 = 10
+PROFILE_STEPS_512 = 2
+# (B, C, H, W) of K3: the dropout Blocks at 512^2 and 256^2, and a ragged
+# map whose 90,000 pixels do not divide into the kernel's pixel slices
+K3_SHAPES = [(2, 64, 512, 512), (2, 128, 256, 256), (2, 96, 300, 300)]
+# K3's sums against float64 sums: s1 within K3_TOL of sum|x|, s2 within
+# K3_TOL of s2 (float32 partial sums of a few thousand terms, in a tree)
+K3_TOL = 1e-5
+# (batch*heads, seq, head_dim): the 64->512 path's 64x64 and 32x32
+# attention, and 16384 tokens (attention at 128x128 on that model)
+LONG_SHAPES = [(2, 4096, 512), (2, 1024, 512), (1, 16384, 256)]
+# remat on against remat off, float32, same seed and dropout draws, cuDNN's
+# deterministic algorithms: the same operations on the same values
+REMAT_TOL = 1e-5
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 KERNELS = {
     "gn_silu_conv3x3": ("sr3_tpu_torch/csrc/conv_fused.cu",
                         "sr3_tpu/ops/conv_fused.py:117"),
@@ -98,8 +151,12 @@ KERNELS = {
                                 "sr3_tpu/ops/attention.py:163"),
     "flash_attention_bwd_dq": ("sr3_tpu_torch/csrc/attention_bwd.cu",
                                "sr3_tpu/ops/attention.py:203"),
+    "gn_stats": ("sr3_tpu_torch/csrc/gn_stats.cu",
+                 "sr3_tpu/ops/groupnorm.py:66"),
 }
 FORWARD_KERNELS = ("gn_silu_conv3x3", "group_norm", "flash_attention_fwd")
+KERNELS_16_128 = FORWARD_KERNELS + ("flash_attention_bwd_dkv",
+                                    "flash_attention_bwd_dq")
 
 
 def phase(name):
@@ -117,6 +174,50 @@ def phase(name):
 def rel_err(out, ref):
     d = (out.float() - ref.float()).abs().max().item()
     return d / max(ref.float().abs().max().item(), 1e-30), d
+
+
+def check(torch, errs, failures, kernel, dtype, label, out, ref, tol=None):
+    """Hold one kernel output against its plain version: error relative to
+    max|ref| within TOL (or ``tol``); recorded in ``errs[kernel]``."""
+    torch.cuda.synchronize()
+    rel, absd = rel_err(out, ref)
+    tol = TOL[dtype][kernel] if tol is None else tol
+    ok = rel <= tol
+    e = errs.setdefault(kernel, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                 "checks": 0})
+    e["max_abs_err"] = max(e["max_abs_err"], absd)
+    e["max_rel_err"] = max(e["max_rel_err"], rel)
+    e["checks"] += 1
+    print(f"  {kernel} {dtype} {label}: rel {rel:.3e} abs {absd:.3e} "
+          f"tol {tol:g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{kernel} {dtype} {label}")
+
+
+def check_grad(torch, failures, name, dtype, i, got, ref):
+    """An autograd Function's input gradient against autograd of the plain
+    version."""
+    torch.cuda.synchronize()
+    rel, absd = rel_err(got, ref)
+    tol = TOL[dtype]["function"]
+    ok = rel <= tol and got.dtype == ref.dtype
+    print(f"  autograd {name} {dtype} input {i} gradient: rel {rel:.3e} "
+          f"abs {absd:.3e} tol {tol:g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"autograd {name} {dtype} input {i}")
+
+
+def function_grads(torch, call, wrapper, plain, inputs):
+    """Input gradients of (wrapper, plain) for one seeded output weighting."""
+    grads = []
+    for f in (wrapper, plain):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = call(f, leaves)
+        w = torch.randn(out.shape, device="cuda", generator=torch
+                        .Generator(device="cuda").manual_seed(1))
+        (out.float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    return grads
 
 
 @phase("device")
@@ -169,30 +270,10 @@ def kernel_phase(torch, errs):
     failures = []
 
     def record_fn(name, dtype, i, got, ref):
-        torch.cuda.synchronize()
-        rel, absd = rel_err(got, ref)
-        tol = TOL[dtype]["function"]
-        ok = rel <= tol and got.dtype == ref.dtype
-        print(f"  autograd {name} {dtype} input {i} gradient: rel {rel:.3e} "
-              f"abs {absd:.3e} tol {tol:g} {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            failures.append(f"autograd {name} {dtype} input {i}")
+        check_grad(torch, failures, name, dtype, i, got, ref)
 
     def record(kernel, dtype, label, out, ref):
-        torch.cuda.synchronize()
-        rel, absd = rel_err(out, ref)
-        tol = TOL[dtype][kernel]
-        ok = rel <= tol
-        e = errs.setdefault(kernel, {"max_abs_err": 0.0, "max_rel_err": 0.0,
-                                     "checks": 0})
-        e["max_abs_err"] = max(e["max_abs_err"], absd)
-        e["max_rel_err"] = max(e["max_rel_err"], rel)
-        e["checks"] += 1
-        print(f"  {kernel} {dtype} {label}: rel {rel:.3e} abs {absd:.3e} "
-              f"tol {tol:g} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            failures.append(f"{kernel} {dtype} {label}")
+        check(torch, errs, failures, kernel, dtype, label, out, ref)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
@@ -239,14 +320,7 @@ def kernel_phase(torch, errs):
             record("flash_attention_bwd_dq", dn, label + ": dq", dq, rq)
         for name, call, wrapper, plain, inputs in _function_cases(
                 torch, g, dtype):
-            grads = []
-            for f in (wrapper, plain):
-                leaves = [t.detach().clone().requires_grad_() for t in inputs]
-                out = call(f, leaves)
-                w = torch.randn(out.shape, device="cuda", generator=torch
-                                .Generator(device="cuda").manual_seed(1))
-                (out.float() * w).sum().backward()
-                grads.append([t.grad for t in leaves])
+            grads = function_grads(torch, call, wrapper, plain, inputs)
             for i, (got, ref) in enumerate(zip(*grads)):
                 record_fn(name, dn, i, got, ref)
     if failures:
@@ -277,10 +351,10 @@ def _function_cases(torch, g, dtype):
     ]
 
 
-def _load_opt(dtype=None, val_steps=None, phase="val"):
+def _load_opt(dtype=None, val_steps=None, phase="val", config=CONFIG):
     from sr3_tpu_torch.utils.config import load_config
 
-    opt = load_config(CONFIG)
+    opt = load_config(config)
     opt["phase"] = phase
     opt["path"]["resume_state"] = None
     if dtype:
@@ -293,8 +367,12 @@ def _load_opt(dtype=None, val_steps=None, phase="val"):
 def counters():
     from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
 
-    return [conv_fused.counter, groupnorm.counter, attention.counter,
-            attention.dkv_counter, attention.dq_counter]
+    return [conv_fused.counter, groupnorm.counter, groupnorm.stats_counter,
+            attention.counter, attention.dkv_counter, attention.dq_counter]
+
+
+def launches_of(names):
+    return {c.name: c.n for c in counters() if c.name in names}
 
 
 def forward_launches():
@@ -383,44 +461,31 @@ def serving_phase(torch, trainer):
     return launches
 
 
-def _synthetic_batches(np, n, b, seed):
+def _synthetic_batches(np, n, b, seed, lr_size=16, scale=8):
     """n seeded (HR, SR) host batches, NHWC float32 in [-1, 1]: the SR image
-    is the bicubic-like blur of a 16x16 version of HR, as the dataset's."""
+    is the upsampled low-resolution image and HR that plus noise, as the
+    dataset's pairs."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        lr = rng.uniform(-1, 1, (b, 16, 16, 3)).astype(np.float32)
-        sr = np.repeat(np.repeat(lr, 8, axis=1), 8, axis=2)
+        lr = rng.uniform(-1, 1, (b, lr_size, lr_size, 3)).astype(np.float32)
+        sr = np.repeat(np.repeat(lr, scale, axis=1), scale, axis=2)
         hr = np.clip(sr + 0.1 * rng.standard_normal(sr.shape), -1, 1)
         out.append({"HR": hr.astype(np.float32), "SR": sr})
     return out
 
 
-@phase("training path")
-def training_phase(torch):
+def _train_loop_checked(torch, trainer, opt, loader, names):
+    """``train_loop`` over host batches with the launch counters zeroed just
+    before; fails unless every loss is finite, every kernel of ``names``
+    launched, and every parameter got a finite gradient and moved. Returns
+    the launches."""
     import numpy as np
 
-    from sr3_tpu_torch.models.networks import count_params
     from sr3_tpu_torch.training.loops import train_loop
-    from sr3_tpu_torch.training.trainer import create_model
 
-    opt = _load_opt(phase="train")
-    opt["train"].update(n_iter=TRAIN_STEPS, print_freq=1, val_freq=10 ** 9,
-                        save_checkpoint_freq=10 ** 9)
-    trainer = create_model(opt)
-    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
-                                   schedule_phase="train")
-    b = opt["datasets"]["train"]["batch_size"]
-    unet = opt["model"]["unet"]
-    print(f"  train-phase Trainer: {count_params(trainer.netG):,d} params "
-          f"float32, compute {trainer.netG.dtype}, batch {b}, dropout "
-          f"{unet['dropout']}, Adam lr {opt['train']['optimizer']['lr']}",
-          flush=True)
-    if trainer.netG.dtype != torch.bfloat16 or b != 4 or unet["dropout"] != 0.2:
-        raise AssertionError("the training path runs at batch 4, bf16, "
-                             "dropout 0.2")
-    loader = _synthetic_batches(np, TRAIN_STEPS, b, seed=4)
-    before = [p.detach().clone() for p in trainer.netG.parameters()]
+    net = trainer.netG
+    before = [p.detach().clone() for p in net.parameters()]
     losses = []
     step = trainer.optimize_parameters
 
@@ -438,18 +503,18 @@ def training_phase(torch):
     finally:
         del trainer.optimize_parameters
     dt = time.perf_counter() - t0
-    launches = {c.name: c.n for c in counters()}
+    launches = launches_of(names)
     losses = [float(x) for x in losses]
     print(f"  train_loop {len(losses)} steps in {dt:.2f} s; losses "
           f"{[round(x, 5) for x in losses]}; launches {launches}", flush=True)
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+    if len(losses) != len(loader) or not all(np.isfinite(losses)):
         raise AssertionError(f"losses {losses}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel did not launch in training: "
                              f"{launches}")
-    bad = [n for n, p in trainer.netG.named_parameters()
+    bad = [n for n, p in net.named_parameters()
            if p.grad is None or not torch.isfinite(p.grad).all()]
-    still = [n for (n, p), p0 in zip(trainer.netG.named_parameters(), before)
+    still = [n for (n, p), p0 in zip(net.named_parameters(), before)
              if torch.equal(p.detach(), p0)]
     print(f"  parameters without a finite gradient: {len(bad)}; "
           f"parameters that did not move: {len(still)} of {len(before)}",
@@ -457,40 +522,98 @@ def training_phase(torch):
     if bad or still:
         raise AssertionError(f"no finite gradient: {bad[:5]}; "
                              f"not moved: {still[:5]}")
+    return launches
+
+
+def _train_trainer(torch, config, steps):
+    """The train-phase Trainer of ``config`` for ``steps`` steps through
+    train_loop (print every step, no validation or checkpoint)."""
+    from sr3_tpu_torch.training.trainer import create_model
+
+    opt = _load_opt(phase="train", config=config)
+    opt["train"].update(n_iter=steps, print_freq=1, val_freq=10 ** 9,
+                        save_checkpoint_freq=10 ** 9)
+    trainer = create_model(opt)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   schedule_phase="train")
+    return trainer, opt
+
+
+@phase("training path")
+def training_phase(torch):
+    import numpy as np
+
+    from sr3_tpu_torch.models.networks import count_params
+
+    trainer, opt = _train_trainer(torch, CONFIG, TRAIN_STEPS)
+    b = opt["datasets"]["train"]["batch_size"]
+    unet = opt["model"]["unet"]
+    print(f"  train-phase Trainer: {count_params(trainer.netG):,d} params "
+          f"float32, compute {trainer.netG.dtype}, batch {b}, dropout "
+          f"{unet['dropout']}, Adam lr {opt['train']['optimizer']['lr']}",
+          flush=True)
+    if trainer.netG.dtype != torch.bfloat16 or b != 4 or unet["dropout"] != 0.2:
+        raise AssertionError("the training path runs at batch 4, bf16, "
+                             "dropout 0.2")
+    loader = _synthetic_batches(np, TRAIN_STEPS, b, seed=4)
+    launches = _train_loop_checked(torch, trainer, opt, loader, KERNELS_16_128)
     return trainer, launches
 
 
-@phase("training gradients")
-def grad_check_phase(torch):
-    from sr3_tpu_torch.models import unet as unet_module
+def _f32_train_case(torch, config, size, seed):
+    """A float32 train-mode diffusion of ``config`` on the card and a
+    seeded batch-1 loss with injected noise and sqrt-gamma:
+    ``loss_and_grads()`` runs it with a fresh dropout generator of one seed
+    and returns (loss, {name: grad})."""
     from sr3_tpu_torch.models.networks import define_G
     from sr3_tpu_torch.models.schedule import make_schedule
-    from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
 
-    opt = _load_opt(dtype="float32", phase="train")
+    opt = _load_opt(dtype="float32", phase="train", config=config)
     diffusion = define_G(opt, device="cuda", seed=0)
     net = diffusion.denoise_fn.train()
     sched = make_schedule(opt["model"]["beta_schedule"]["train"], "cuda")
-    g = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     cl = torch.channels_last
-    batch = {k: (torch.rand(1, 3, 128, 128, device="cuda", generator=g) * 2
+    batch = {k: (torch.rand(1, 3, size, size, device="cuda", generator=g) * 2
                  - 1).contiguous(memory_format=cl) for k in ("HR", "SR")}
-    injected = {"noise": torch.randn(1, 3, 128, 128, device="cuda",
+    injected = {"noise": torch.randn(1, 3, size, size, device="cuda",
                                      generator=g),
                 "sqrt_gamma": torch.full((1, 1), 0.7, device="cuda")}
 
     def loss_and_grads():
         net.zero_grad(set_to_none=True)
-        masks = torch.Generator(device="cuda").manual_seed(6)
+        masks = torch.Generator(device="cuda").manual_seed(seed + 1)
         loss = diffusion.p_losses(net, sched, batch, masks, injected)
         loss.backward()
         return loss.item(), {n: p.grad.clone()
                              for n, p in net.named_parameters()}
 
+    return net, loss_and_grads
+
+
+def _compare_grads(a, b):
+    """(relative loss difference, worst parameter, its relative error) of
+    two (loss, grads) results."""
+    (loss_a, grads_a), (loss_b, grads_b) = a, b
+    worst, worst_rel = None, 0.0
+    for n, gb in grads_b.items():
+        rel, _ = rel_err(grads_a[n], gb)
+        if worst is None or not rel <= worst_rel:
+            worst, worst_rel = n, rel
+    return abs(loss_a - loss_b) / abs(loss_b), worst, worst_rel
+
+
+def _kernels_vs_plain(torch, loss_and_grads, names, label):
+    """The loss and gradients with the kernels (counters zeroed just before;
+    every kernel of ``names`` must launch) against the plain ops swapped
+    into the UNet module, within GRAD_TOL. Returns the kernels' result."""
+    from sr3_tpu_torch.models import unet as unet_module
+    from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
+
     for c in counters():
         c.n = 0
-    loss_k, grads_k = loss_and_grads()
-    launches = {c.name: c.n for c in counters()}
+    kernels = loss_and_grads()
+    launches = launches_of(names)
     plain = {"gn_silu_conv3x3": conv_fused.gn_silu_conv3x3_plain,
              "group_norm": groupnorm.group_norm_plain,
              "attention": attention.attention_plain}
@@ -498,25 +621,27 @@ def grad_check_phase(torch):
     try:
         for k, f in plain.items():
             setattr(unet_module, k, f)
-        loss_p, grads_p = loss_and_grads()
+        plain_ops = loss_and_grads()
     finally:
         for k, f in saved.items():
             setattr(unet_module, k, f)
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst, worst_rel = None, 0.0
-    for n, gp in grads_p.items():
-        rel, _ = rel_err(grads_k[n], gp)
-        if not rel <= worst_rel:
-            worst, worst_rel = n, rel
-    print(f"  float32 batch 1, kernels {launches} vs plain ops: loss "
-          f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); worst of "
-          f"{len(grads_p)} gradients {worst}: rel {worst_rel:.3e}; tol "
+    loss_rel, worst, worst_rel = _compare_grads(kernels, plain_ops)
+    print(f"  float32 batch 1{label}, kernels {launches} vs plain ops: loss "
+          f"{kernels[0]:.6f} vs {plain_ops[0]:.6f} (rel {loss_rel:.3e}); worst "
+          f"of {len(plain_ops[1])} gradients {worst}: rel {worst_rel:.3e}; tol "
           f"{GRAD_TOL:g}", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel did not launch: {launches}")
     if not (loss_rel <= GRAD_TOL and worst_rel <= GRAD_TOL):
         raise AssertionError(f"gradients disagree: loss {loss_rel}, {worst} "
                              f"{worst_rel}")
+    return kernels
+
+
+@phase("training gradients")
+def grad_check_phase(torch):
+    _, loss_and_grads = _f32_train_case(torch, CONFIG, 128, seed=5)
+    _kernels_vs_plain(torch, loss_and_grads, KERNELS_16_128, "")
 
 
 @phase("training timing")
@@ -645,6 +770,480 @@ def timing_phase(torch, trainer):
              lambda: attention.attention_plain(q, k, v, d ** -0.5))
     return times
 
+# ------------------------------------------------------- the 64->512 slice
+
+
+@phase("K3 statistics")
+def k3_phase(torch, errs):
+    """K3 against float64 sums and gn_stats_plain; the statistics route of
+    group_norm against group_norm_plain, forward and input gradients."""
+    from sr3_tpu_torch.ops import groupnorm
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for b, c, h, w in K3_SHAPES:
+            label = f"{b}x{c}x{h}x{w}"
+            x = 3 * torch.randn(b, c, h, w, device="cuda", generator=g) + 1
+            x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+            n = groupnorm.stats_counter.n
+            s1, s2 = groupnorm.gn_stats(x)
+            p1, p2 = groupnorm.gn_stats_plain(x)
+            torch.cuda.synchronize()
+            if groupnorm.stats_counter.n != n + 1:
+                failures.append(f"gn_stats {label} did not launch once")
+            xd = x.double()
+            r1, r2 = xd.sum(dim=(2, 3)), xd.square().sum(dim=(2, 3))
+            scales = (xd.abs().sum(dim=(2, 3)), r2)
+            e = errs.setdefault("gn_stats", {"max_abs_err": 0.0,
+                                             "max_rel_err": 0.0, "checks": 0})
+            for name, got, plain, ref, sc in (("s1", s1, p1, r1, scales[0]),
+                                              ("s2", s2, p2, r2, scales[1])):
+                absd = (got.double() - ref).abs()
+                rel = (absd / sc).max().item()
+                rel_plain = ((got.double() - plain.double()).abs()
+                             / sc).max().item()
+                e["max_abs_err"] = max(e["max_abs_err"], absd.max().item())
+                e["max_rel_err"] = max(e["max_rel_err"], rel)
+                e["checks"] += 1
+                ok = rel <= K3_TOL and rel_plain <= K3_TOL
+                print(f"  gn_stats {dn} {label} {name}: vs float64 rel {rel:.3e}"
+                      f" (abs {absd.max().item():.3e}), vs plain rel "
+                      f"{rel_plain:.3e} tol {K3_TOL:g} {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    failures.append(f"gn_stats {dn} {label} {name}")
+            wt = 1 + 0.2 * torch.randn(c, device="cuda", generator=g)
+            bs = 0.1 * torch.randn(c, device="cuda", generator=g)
+            n = groupnorm.stats_counter.n
+            check(torch, {}, failures, "group_norm", dn,
+                  f"{label} statistics route (G=16)",
+                  groupnorm.group_norm(x, wt, bs, 16, swish=True),
+                  groupnorm.group_norm_plain(x, wt, bs, 16, swish=True))
+            if groupnorm.stats_counter.n != n + 1:
+                failures.append(f"group_norm {label} did not take the "
+                                f"statistics route")
+            grads = function_grads(
+                torch, lambda f, t: f(*t, 16, swish=True),
+                groupnorm.group_norm, groupnorm.group_norm_plain, [x, wt, bs])
+            for i, (got, ref) in enumerate(zip(*grads)):
+                check_grad(torch, failures, f"group_norm route {label}", dn, i,
+                           got, ref)
+    if failures:
+        raise AssertionError(f"K3 disagrees with its plain version: "
+                             f"{failures}")
+
+
+@phase("long-sequence attention")
+def long_attention_phase(torch, errs):
+    """K4 with its logsumexp, K5 and K6 against the plain versions at the
+    64->512 path's sequence lengths and at 16384 tokens."""
+    from sr3_tpu_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for bh, seq, d in LONG_SHAPES:
+            q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=g)
+                       .to(dtype) for _ in range(3))
+            gr = torch.randn(bh, seq, d, device="cuda", generator=g)
+            label, scale = f"{bh}x{seq}x{d}", d ** -0.5
+            o, lse = attention.attention_fwd(q, k, v, scale)
+            ref_o, ref_lse = attention.attention_fwd_plain(q, k, v, scale)
+            check(torch, errs, failures, "flash_attention_fwd", dn,
+                  label + " with lse: o", o, ref_o)
+            check(torch, errs, failures, "flash_attention_fwd", dn,
+                  label + " with lse: lse", lse, ref_lse)
+            del ref_o, ref_lse
+            dsum = (gr * o).sum(-1)
+            dq, dk, dv = attention.attention_bwd(q, k, v, gr, lse, dsum, scale)
+            rq, rk, rv = attention.attention_bwd_plain(q, k, v, gr, lse, dsum,
+                                                       scale)
+            check(torch, errs, failures, "flash_attention_bwd_dkv", dn,
+                  label + ": dk", dk, rk)
+            check(torch, errs, failures, "flash_attention_bwd_dkv", dn,
+                  label + ": dv", dv, rv)
+            check(torch, errs, failures, "flash_attention_bwd_dq", dn,
+                  label + ": dq", dq, rq)
+            del rq, rk, rv
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"long-sequence attention disagrees with the "
+                             f"plain versions: {failures}")
+
+
+def k3_sites(opt):
+    """Blocks of one UNet forward whose GroupNorm takes the statistics
+    route: the dropout Block (block2) of every ResnetBlock on a map of
+    STATS_MIN_HW pixels or more -- res_blocks per level on the way down,
+    res_blocks + 1 on the way up."""
+    from sr3_tpu_torch.ops.groupnorm import STATS_MIN_HW
+
+    unet = opt["model"]["unet"]
+    res, n = opt["model"]["diffusion"]["image_size"], 0
+    for _ in unet["channel_multiplier"]:
+        if res * res >= STATS_MIN_HW:
+            n += 2 * unet["res_blocks"] + 1
+        res //= 2
+    return n
+
+
+@phase("64->512 training path")
+def training_512_phase(torch):
+    """TRAIN_STEPS_512 full-width steps through train_loop at the config's
+    batch 2, bf16, remat on; every kernel launched, K3 and K4-K6 as often
+    as the model says."""
+    import numpy as np
+
+    from sr3_tpu_torch.models.networks import count_params
+    from sr3_tpu_torch.models.unet import SelfAttention
+
+    trainer, opt = _train_trainer(torch, CONFIG_512, TRAIN_STEPS_512)
+    b = opt["datasets"]["train"]["batch_size"]
+    unet = opt["model"]["unet"]
+    net = trainer.netG
+    n_attn = sum(isinstance(m, SelfAttention) for m in net.modules())
+    sites = k3_sites(opt)
+    print(f"  train-phase Trainer: {count_params(net):,d} params float32, "
+          f"compute {net.dtype}, batch {b}, dropout {unet['dropout']}, remat "
+          f"{net.remat}, {n_attn} attention calls and {sites} statistics-"
+          f"route GroupNorms per forward", flush=True)
+    if net.dtype != torch.bfloat16 or b != 2 or not net.remat \
+            or unet["dropout"] != 0.2:
+        raise AssertionError("the 64->512 path trains at batch 2, bf16, "
+                             "dropout 0.2, remat on")
+    loader = _synthetic_batches(np, TRAIN_STEPS_512, b, seed=12, lr_size=64)
+    launches = _train_loop_checked(torch, trainer, opt, loader, KERNELS)
+    # remat runs every block's forward twice (once more in the backward)
+    steps = TRAIN_STEPS_512
+    expect = {"gn_stats": 2 * sites * steps,
+              "flash_attention_fwd": 2 * n_attn * steps,
+              "flash_attention_bwd_dkv": n_attn * steps,
+              "flash_attention_bwd_dq": n_attn * steps}
+    wrong = {k: (launches[k], v) for k, v in expect.items()
+             if launches[k] != v}
+    print(f"  expected launches {expect}", flush=True)
+    if wrong:
+        raise AssertionError(f"launches (got, expected): {wrong}")
+    return trainer, launches
+
+
+@phase("64->512 training gradients")
+def grad_check_512_phase(torch):
+    """Float32, batch 1, remat on: kernels against the plain ops swapped
+    into the UNet (GRAD_TOL); then remat on against remat off with the same
+    draws (REMAT_TOL)."""
+    net, loss_and_grads = _f32_train_case(torch, CONFIG_512, 512, seed=13)
+    _kernels_vs_plain(torch, loss_and_grads, KERNELS, " remat on")
+    # cuDNN's default conv backward sums with atomics, in an order that
+    # changes from run to run; its deterministic algorithms keep the two
+    # runs comparable
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels = loss_and_grads()
+        net.remat = False
+        no_remat = loss_and_grads()
+    finally:
+        net.remat = True
+        torch.backends.cudnn.deterministic = False
+    loss_rel, worst, worst_rel = _compare_grads(kernels, no_remat)
+    print(f"  float32 batch 1, kernels, deterministic cuDNN, remat on vs off: loss "
+          f"{kernels[0]:.6f} vs {no_remat[0]:.6f} (rel {loss_rel:.3e}); worst "
+          f"gradient {worst}: rel {worst_rel:.3e}; tol {REMAT_TOL:g}",
+          flush=True)
+    if not (loss_rel <= REMAT_TOL and worst_rel <= REMAT_TOL):
+        raise AssertionError(f"remat changes the gradients: loss {loss_rel}, "
+                             f"{worst} {worst_rel}")
+
+
+@phase("64->512 serving path")
+def serving_512_phase(torch):
+    """GroupedEvaluator.run_sr on 2 images, T=10 val schedule, 512^2 bf16;
+    then the median ms of one batch-8 p_sample_step (the config's val
+    batch)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from sr3_tpu_torch.models.diffusion import _snapshot_count
+    from sr3_tpu_torch.training.evaluation import GroupedEvaluator
+    from sr3_tpu_torch.training.trainer import create_model
+
+    opt = _load_opt(val_steps=10, config=CONFIG_512)
+    trainer = create_model(opt)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
+                                   schedule_phase="val")
+    g = torch.Generator().manual_seed(14)
+    lr = torch.rand(2, 3, 64, 64, generator=g) * 2 - 1
+    sr = F.interpolate(lr, size=(512, 512), mode="bicubic",
+                       align_corners=False).clamp(-1, 1)
+    items = [{"SR": sr[i].permute(1, 2, 0).numpy(), "Index": i}
+             for i in range(2)]
+    ev = GroupedEvaluator(trainer, group_size=2)
+    for c in counters():
+        c.n = 0
+    t0 = time.perf_counter()
+    outs = list(ev.run_sr(iter(items), continous=True))
+    dt = time.perf_counter() - t0
+    launches = forward_launches()
+    n_snap, _ = _snapshot_count(trainer.sched.num_timesteps)
+    for item, frames in outs:
+        if frames.shape != (1 + n_snap, 512, 512, 3):
+            raise AssertionError(f"frames shape {frames.shape}")
+        if not np.isfinite(frames).all():
+            raise AssertionError("non-finite frames")
+    print(f"  run_sr(continous=True) {trainer.netG.dtype}: {len(outs)} images, "
+          f"frames {outs[0][1].shape}, T={trainer.sched.num_timesteps}, "
+          f"{dt:.2f} s; launches {launches}", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+
+    from sr3_tpu_torch.models.schedule import make_schedule
+
+    bt = opt["datasets"]["val"]["batch_size"]
+    sched = make_schedule(opt["model"]["beta_schedule"]["val"] | {
+        "n_timestep": 2000}, "cuda")
+    net = trainer._eval_params()
+    gd = torch.Generator(device="cuda").manual_seed(15)
+    cond = torch.rand(bt, 3, 512, 512, device="cuda", generator=gd) * 2 - 1
+    img = torch.randn(bt, 3, 512, 512, device="cuda", generator=gd)
+    steps = iter(range(1999, -1, -1))
+    with torch.inference_mode():
+        ms = _time_each(torch, lambda: trainer.diffusion.p_sample_step(
+            net, sched, img, next(steps), cond, generator=gd), 10)
+    step_ms = float(np.median(ms))
+    print(f"  UNet step (p_sample_step) B={bt} 512^2 {net.dtype}: median "
+          f"{step_ms:.3f} ms/step over {len(ms)} steps (min {min(ms):.3f}, "
+          f"max {max(ms):.3f}); 2000-step throughput extrapolated "
+          f"{bt / (2000 * step_ms / 1000):.5f} img/s", flush=True)
+    return launches
+
+
+def _time_each(torch, fn, n, warmup=2):
+    """CUDA-event milliseconds of each of n calls, after warm-up calls."""
+    for _ in range(warmup):
+        fn()
+    ms = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return ms
+
+
+def _device_events(torch, prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_busy(torch, prof):
+    """Union of the profiled device intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in _device_events(torch, prof))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1000
+
+
+@phase("64->512 training timing")
+def train_timing_512_phase(torch, trainer):
+    """Median train step (CUDA events), train img/s and peak memory at
+    batch 2; then a torch.profiler window: device time by op, launches and
+    the device busy share of the step."""
+    import numpy as np
+
+    b = trainer.opt["datasets"]["train"]["batch_size"]
+    trainer.feed_data(_synthetic_batches(np, 1, b, seed=16, lr_size=64)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_each(torch, trainer.optimize_parameters, TIME_STEPS_512)
+    step_ms = float(np.median(ms))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  train step B={b} {trainer.netG.dtype} remat: median "
+          f"{step_ms:.3f} ms/step over {TIME_STEPS_512} steps (min "
+          f"{min(ms):.3f}, max {max(ms):.3f}); {b / (step_ms / 1000):.4f} "
+          f"train img/s; peak device memory {peak:.2f} GiB", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS_512):
+            trainer.optimize_parameters()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000 / PROFILE_STEPS_512
+    busy = _device_busy(torch, prof) / PROFILE_STEPS_512
+    by_kernel = {}
+    for e in _device_events(torch, prof):
+        t, n = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    n_dev = sum(n for _, n in by_kernel.values())
+    print(f"  profiled {PROFILE_STEPS_512} steps: wall {wall:.1f} ms/step, "
+          f"device busy {busy:.1f} ms/step ({100 * busy / wall:.1f}%), "
+          f"{n_dev / PROFILE_STEPS_512:.0f} device ops/step; device time "
+          f"per step by kernel:", flush=True)
+    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    for name, (t, n) in rows[:16]:
+        print(f"    {t / 1000 / PROFILE_STEPS_512:9.3f} ms  "
+              f"{n / PROFILE_STEPS_512:7.1f}/step  {name[:90]}", flush=True)
+    rest = sum(t for _, (t, _) in rows[16:]) / 1000 / PROFILE_STEPS_512
+    print(f"    {rest:9.3f} ms  the other {len(rows) - 16} kernels",
+          flush=True)
+    return step_ms
+
+
+def _sdpa_backend(torch, fn):
+    """The aten op that one SDPA call dispatches to (its backend)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.name.startswith("aten::_scaled_dot_product")})
+
+
+def _device_ms(torch, fn, n=5):
+    """Device time per call of ``fn`` (the sum of its kernels' durations in
+    a torch.profiler window over n calls, after one warm-up): without the
+    host's launch gaps that CUDA events around a call include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us()
+               for e in _device_events(torch, prof)) / 1000 / n
+
+
+@phase("64->512 kernel timing")
+def kernel_timing_512_phase(torch):
+    """One round of each kernel at a 64->512 training shape (bf16, batch 2)
+    beside its plain version and, where one PyTorch call computes the same
+    function, that call (library_ms, never called by the port); and the
+    least time the card could take for the same work (bound_ms)."""
+    import torch.nn.functional as F
+
+    from sr3_tpu_torch.ops import conv_fused, groupnorm
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    dt, cl = torch.bfloat16, torch.channels_last
+    out = {}
+
+    def entry(name, shape, fn, plain, library, flops, nbytes):
+        fns = {"": fn, "plain_": plain, "library_": library}
+        t = {}
+        for key, f in fns.items():
+            t[key + "ms"] = None if f is None else _time_ms(torch, f, n=5)
+            t[key + "device_ms"] = None if f is None else _device_ms(torch, f)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        bound_ms = 1000 * max(t_ops, t_bytes)
+        by = "operations" if t_ops > t_bytes else "bytes"
+        out.setdefault(name, {**t, "bound_ms": bound_ms, "bound_by": by,
+                              "shape": shape})
+        show = lambda k: "none" if t[k] is None else f"{t[k]:.4f}"
+        print(f"  {name} {shape} bf16, ms (events / device): kernel "
+              f"{show('ms')} / {show('device_ms')}, plain {show('plain_ms')} / "
+              f"{show('plain_device_ms')}, library {show('library_ms')} / "
+              f"{show('library_device_ms')}; bound {bound_ms:.4f} ({by}; "
+              f"kernel device time {t['device_ms'] / bound_ms:.1f}x)",
+              flush=True)
+
+    b = 2
+    args, kw = _k1_inputs(torch, g, b, 64, 64, 512, dt, True)
+    hw = 512 * 512
+    entry("gn_silu_conv3x3", f"{b}x64x512x512->64 +film+residual",
+          lambda: conv_fused.gn_silu_conv3x3(*args, **kw),
+          lambda: conv_fused.gn_silu_conv3x3_plain(*args, **kw), None,
+          2 * b * hw * 64 * 64 * 9, 2 * (3 * b * hw * 64 + 64 * 64 * 9))
+    x = torch.randn(b, 512, 64, 64, device="cuda", generator=g)
+    x = x.to(dt).contiguous(memory_format=cl)
+    gw = 1 + 0.2 * torch.randn(512, device="cuda", generator=g)
+    gb = 0.1 * torch.randn(512, device="cuda", generator=g)
+    gw16, gb16 = gw.to(dt), gb.to(dt)
+    entry("group_norm", f"{b}x512x64x64 swish off",
+          lambda: groupnorm.group_norm(x, gw, gb, 16, swish=False),
+          lambda: groupnorm.group_norm_plain(x, gw, gb, 16, swish=False),
+          lambda: F.group_norm(x, 16, gw16, gb16, 1e-5),
+          10 * x.numel(), 2 * 2 * x.numel())
+    for _, c, h, w in K3_SHAPES[:2]:
+        x = torch.randn(b, c, h, w, device="cuda", generator=g)
+        x = x.to(dt).contiguous(memory_format=cl)
+        xf = x.float()
+        entry("gn_stats", f"{b}x{c}x{h}x{w}",
+              lambda: groupnorm.gn_stats(x),
+              lambda: groupnorm.gn_stats_plain(x),
+              lambda: torch.var_mean(xf, dim=(2, 3), correction=0),
+              3 * x.numel(), 2 * x.numel() + 2 * 4 * b * c)
+        del x, xf
+    for bh, seq, d in LONG_SHAPES:
+        _attention_entries(torch, g, entry, bh, seq, d)
+    return out
+
+
+def _attention_entries(torch, g, entry, bh, seq, d):
+    """Timing entries of K4 (with its logsumexp), K5 and K6 at one shape."""
+    import torch.nn.functional as F
+
+    from sr3_tpu_torch.ops import attention
+
+    dt = torch.bfloat16
+    q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=g).to(dt)
+               for _ in range(3))
+    gr = torch.randn(bh, seq, d, device="cuda", generator=g)
+    scale = d ** -0.5
+    o, lse = attention.attention_fwd(q, k, v, scale)
+    dsum = (gr * o).sum(-1)
+    outs = [torch.empty_like(gr) for _ in range(3)]
+    shape = f"{bh}x{seq}x{d}"
+    mm = 2 * bh * seq * seq * d  # one (seq x seq x d) product
+    qkv_bytes = 3 * 2 * q.numel()
+    q4, k4, v4 = (t.unsqueeze(1) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+    print(f"  SDPA at head_dim {d} runs: {_sdpa_backend(torch, sdpa)}",
+          flush=True)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    lg = gr.to(dt).unsqueeze(1)
+    sdpa_bwd = lambda: torch.autograd.grad(lo, (ql, kl, vl), lg,
+                                           retain_graph=True)
+    try:
+        sdpa_bwd()
+    except RuntimeError as e:  # no SDPA backward at this head_dim
+        print(f"  SDPA backward at head_dim {d}: {e}", flush=True)
+        sdpa_bwd = None
+    plain_bwd = lambda: attention.attention_bwd_plain(q, k, v, gr, lse, dsum,
+                                                      scale)
+    entry("flash_attention_fwd", shape + " with lse",
+          lambda: attention.attention_fwd(q, k, v, scale),
+          lambda: attention.attention_fwd_plain(q, k, v, scale), sdpa,
+          2 * mm, qkv_bytes + 4 * (q.numel() + bh * seq))
+    entry("flash_attention_bwd_dkv", shape,
+          lambda: attention._bwd_kernel(
+              "sr3_flash_attention_bwd_dkv", attention.dkv_counter, q, k, v,
+              gr, lse, dsum, outs[1:], scale), plain_bwd, sdpa_bwd,
+          4 * mm, qkv_bytes + 4 * (gr.numel() + 2 * bh * seq)
+          + 2 * 4 * q.numel())
+    entry("flash_attention_bwd_dq", shape,
+          lambda: attention._bwd_kernel(
+              "sr3_flash_attention_bwd_dq", attention.dq_counter, q, k, v, gr,
+              lse, dsum, outs[:1], scale), plain_bwd, sdpa_bwd,
+          3 * mm, qkv_bytes + 4 * (gr.numel() + 2 * bh * seq)
+          + 4 * q.numel())
+
 
 def main():
     import torch
@@ -656,32 +1255,43 @@ def main():
         device_phase(torch)
         build_phase()
         errs = {}
+        # the SR3 16->128 serving and training paths
         kernel_phase(torch, errs)
         trainer = model_phase(torch)
         serving = serving_phase(torch, trainer)
         times = timing_phase(torch, trainer)
         del trainer
-        trainer, launches = training_phase(torch)
+        trainer, launches_128 = training_phase(torch)
         grad_check_phase(torch)
         _, train_times = train_timing_phase(torch, trainer)
+        times.update(train_times)
+        del trainer
+        # the SR3 64->512 training path, and its serving path
+        k3_phase(torch, errs)
+        long_attention_phase(torch, errs)
+        trainer, launches = training_512_phase(torch)
+        grad_check_512_phase(torch)
+        train_timing_512_phase(torch, trainer)
+        del trainer
+        serving_512 = serving_512_phase(torch)
+        timings = kernel_timing_512_phase(torch)
     except Exception:  # report any phase's failure, print no result
         traceback.print_exc()
         return 1
-    times.update(train_times)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms = times[name]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "serving_launches": serving.get(name, 0),
             "max_abs_err": errs[name]["max_abs_err"],
             "max_rel_err": errs[name]["max_rel_err"],
-            "ms": ms, "plain_ms": plain_ms,
+            **timings[name],
+            "launches_16_128_train": launches_128.get(name, 0),
+            "launches_16_128_serving": serving.get(name, 0),
+            "launches_64_512_serving": serving_512.get(name, 0),
         }
-        if name == "flash_attention_fwd":
-            entry["lse_ms"], entry["plain_lse_ms"] = \
-                times["flash_attention_fwd (lse)"]
+        if name in times:
+            entry["ms_16_128"], entry["plain_ms_16_128"] = times[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

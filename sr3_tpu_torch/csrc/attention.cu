@@ -7,14 +7,19 @@
 // (pallas_call in `_fwd_pallas_call`, :104), with its `with_lse` output. On
 // the 16->128 main path it is the single-head self-attention at 16x16 and in
 // the 8x8 mid block: (B, 256, 512) and (B, 64, 512), scale 1/sqrt(512), six
-// calls per UNet forward; a training step asks for the logsumexp.
+// calls per UNet forward; a training step asks for the logsumexp. On the
+// 64->512 path it runs at (2, 4096, 512) and (2, 1024, 512); attention at
+// 128x128 on that model would give (B, 16384, D).
 //
 // Bound on the card: at these sequence lengths neither memory nor FLOPs are
 // large (Q, K, V and O are 0.5-2 MB per image); the kernel is bound by
 // shared-memory bandwidth of its float32 FMA loops and by the number of
 // blocks in flight. K and V are streamed through shared memory in 16-key
-// tiles with the online softmax, so the (seq x seq) matrix never exists and
-// the same kernel serves the 16k-token configurations later. head_dim 512 is
+// tiles with the online softmax, so the (seq x seq) matrix never exists at
+// any length; offsets are size_t and the grid is (ceil(S / 16), BH), so
+// 16384 tokens are well inside its limits (BH <= 65535). At 4096 tokens and
+// more the kernel is bound by its float32 FMA loops (no tensor cores), far
+// above the bf16 tensor-core bound of 4*BH*S^2*D operations. head_dim 512 is
 // above the usual 256 limit: the Q tile (16 x 512) and one K and one V tile
 // (16 x 512 each) are held in float32 in ~100 KB of dynamic shared memory,
 // past the 48 KB default, so the launch raises the kernel's
@@ -168,12 +173,13 @@ cudaError_t flash_t(const void* q, const void* k, const void* v, float* o,
 // o = softmax(q k^T * scale) v. q, k, v: (BH, S, D) of dtype, contiguous;
 // o: (BH, S, D) float32; lse: (BH, S) float32 logsumexp of each row of
 // q k^T * scale, or null to skip it. D must be a multiple of 16 and at most
-// 512. Returns the CUDA error code (0 on success).
+// 512, BH at most 65535. Returns the CUDA error code (0 on success).
 extern "C" int sr3_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, float* o, float* lse,
                                        int BH, int S, int D, float scale,
                                        int dtype, void* stream) {
-  if (D % 16 || D > kDMax || D <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (D % 16 || D > kDMax || D <= 0 || S <= 0 || BH <= 0 || BH > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == sr3::kF32)
     return (int)flash_t<float>(q, k, v, o, lse, BH, S, D, scale, st);

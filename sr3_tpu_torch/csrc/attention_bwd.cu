@@ -9,10 +9,15 @@
 // block owns a tile of 16 queries (Q, dO, lse, dsum), streams K and V tiles
 // and accumulates dQ += dS K. Neither kernel ever holds the (S x S) matrix:
 // each 16 x 16 tile of P and dS lives in shared memory for one step, so the
-// same code serves the 16k-token configurations later.
+// same code runs at any length; offsets are size_t and the grid is
+// (ceil(S / 16), BH).
 //
 // On the 16->128 training path the shapes are (BH, S, D) = (B, 256, 512)
-// and (B, 64, 512), scale 1/sqrt(512), six calls of each per train step.
+// and (B, 64, 512), scale 1/sqrt(512), six calls of each per train step; on
+// the 64->512 path (2, 4096, 512) three times and (2, 1024, 512) four times
+// per step. At 4096 tokens and more the float32 FMA loops are the bound, far
+// above the bf16 tensor-core bound (8*BH*S^2*D operations for K5, 6*BH*S^2*D
+// for K6).
 // Bound on the card: like K4, shared-memory bandwidth of the float32 FMA
 // loops (two shared loads per FMA in the 16 x 16 score and dP dot products
 // over D) and, at batch 4, blocks in flight: K5 and K6 launch S/16 * BH

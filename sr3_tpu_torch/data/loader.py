@@ -1,16 +1,37 @@
-"""Batches of a map-style dataset for the training loop.
+"""Datasets and batches for the port's entry points.
 
 Counterpart of the host-loader path of ``sr3_tpu/data/loader.py``
-(``DataLoader``, ``create_dataloader``): a seeded shuffle per epoch,
+(``create_dataset``, ``DataLoader``, ``create_dataloader``): the port's own
+``LRHRDataset`` from a dataset config, a seeded shuffle per epoch,
 ``drop_last`` for training, and numpy collation of the dataset's NHWC items.
-The JAX package's loader imports jax to shard across processes, so the port
-keeps this small one; the datasets themselves (``sr3_tpu.data.lrhr``, which
-needs Pillow) are built by the entry points (``sr.py``).
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
+
+from sr3_tpu_torch.data.lrhr import LRHRDataset
+
+
+def create_dataset(dataset_opt, phase):
+    """The ``LRHRDataset`` of one ``datasets.{train,val}`` config; 'LRHR'
+    mode also loads the LR images."""
+    dataset = LRHRDataset(
+        dataroot=dataset_opt["dataroot"],
+        datatype=dataset_opt["datatype"],
+        l_resolution=dataset_opt["l_resolution"],
+        r_resolution=dataset_opt["r_resolution"],
+        split=phase,
+        data_len=(dataset_opt["data_len"]
+                  if dataset_opt["data_len"] is not None else -1),
+        need_LR=dataset_opt["mode"] == "LRHR",
+        cache=dataset_opt.get("cache"),
+    )
+    logging.getLogger("base").info("Dataset [%s - %s] is created.",
+                                   type(dataset).__name__, dataset_opt["name"])
+    return dataset
 
 
 def collate(samples):

@@ -15,6 +15,7 @@ import argparse
 import logging
 
 import sr3_tpu_torch.utils.config as Config
+from sr3_tpu_torch.data.loader import create_dataset
 from sr3_tpu_torch.training.evaluation import infer_sr
 from sr3_tpu_torch.training.trainer import create_model
 
@@ -43,12 +44,9 @@ def main(argv=None):
 
     wandb_logger = None
     if opt["enable_wandb"]:
-        from sr3_tpu.utils.wandb_logger import WandbLogger
+        from sr3_tpu_torch.utils.wandb_logger import WandbLogger
 
         wandb_logger = WandbLogger(opt)
-
-    # sr3_tpu.data decodes PNGs with Pillow; imported only where used
-    from sr3_tpu.data.loader import create_dataset
 
     val_set = create_dataset(opt["datasets"]["val"], "val")
     logger.info("Initial Dataset Finished")

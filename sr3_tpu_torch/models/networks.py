@@ -3,7 +3,10 @@
 Counterpart of ``sr3_tpu/models/networks.py`` (``define_G``,
 ``count_params``; ``resolve_dtype`` lives in ``utils/runtime.py``). The UNet
 is built with a seeded init on the CPU, then moved to the device in
-``torch.channels_last`` memory with float32 parameters.
+``torch.channels_last`` memory with float32 parameters. ``unet.remat``
+turns on activation checkpointing of the UNet's blocks. ``unet.use_flash``
+is ignored: it picks between the JAX package's materialized and flash
+attention on a TPU, and the port runs its flash kernels at every length.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ def define_G(opt, device=None, seed=0) -> GaussianDiffusion:
             dropout=unet_opt.get("dropout", 0.0) or 0.0,
             image_size=diff_opt["image_size"],
             dtype=resolve_dtype(model_opt.get("dtype"), device),
+            remat=bool(unet_opt.get("remat", False)),
         )
     unet = unet.to(device=device, memory_format=torch.channels_last).eval()
     return GaussianDiffusion(

@@ -5,7 +5,7 @@ noise-level input with the WaveGrad positional encoding, additive FiLM
 injected between the two Blocks of each ResnetBlock (the JAX package's
 network factory never turns on its affine variant), single-head attention.
 Module names follow the reference state_dict that
-``sr3_tpu.utils.torch_compat.build_key_map`` enumerates (``downs.{i}``,
+``sr3_tpu_torch.utils.torch_compat.build_key_map`` enumerates (``downs.{i}``,
 ``mid.{i}``, ``ups.{i}``, ``noise_level_mlp.{1,3}``, ``final_conv``), so
 reference ``.pth`` files and exported JAX weights load with ``strict=True``.
 
@@ -18,16 +18,29 @@ in the backward); in training a Block with dropout runs K2, the dropout and
 a plain conv instead, as the JAX package's Block does. The stem, down/up-
 sample convs, 1x1 convs and Linear layers are plain torch, as the JAX
 package leaves them to XLA. The dropout draws come from the generator passed
-to ``UNet.forward``, the role of ``rngs={"dropout": ...}`` in JAX.
+to ``UNet.forward``, the role of ``rngs={"dropout": ...}`` in JAX. GroupNorm
+on maps of 256^2 and more takes the statistics route (kernel K3, see
+``ops/groupnorm.py``).
+
+With ``remat`` (the JAX package's ``nn.remat`` around every
+``ResnetBlocWithAttn``), a forward under autograd keeps only each block's
+inputs and recomputes its activations in the backward
+(``torch.utils.checkpoint``, non-reentrant). The recompute replays the
+block's dropout draws: it runs on a copy of the generator taken at the
+block's start, so it draws the same masks and leaves the generator where
+the first forward left it. The kernels launch again in the recompute, and
+their counters count it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sr3_tpu_torch.ops.attention import attention
 from sr3_tpu_torch.ops.conv_fused import gn_silu_conv3x3
@@ -169,6 +182,28 @@ class ResnetBlocWithAttn(nn.Module):
         return self.attn(x) if self.attn is not None else x
 
 
+def remat_block(layer, x, emb, generator=None):
+    """``layer(x, emb, generator)`` under activation checkpointing. The
+    first forward draws from ``generator``; the recompute in the backward
+    draws from a copy of it taken before the first forward, so it replays
+    the same dropout masks and the caller's generator advances once."""
+    if generator is None:
+        return checkpoint(layer, x, emb, None, use_reentrant=False)
+    start = generator.get_state()
+    replay = False
+
+    def run(x, emb):
+        nonlocal replay
+        g = generator
+        if replay:  # the recompute: the first forward's draws again
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+        replay = True
+        return layer(x, emb, g)
+
+    return checkpoint(run, x, emb, use_reentrant=False)
+
+
 class Downsample(nn.Module):
     """conv3x3 stride 2, padding 1."""
 
@@ -195,13 +230,15 @@ class Upsample(nn.Module):
 class UNet(nn.Module):
     """The denoiser backbone. forward(x (b, in_channel, h, w), noise level
     (b,), dropout generator) -> eps (b, out_channel, h, w) float32,
-    channels_last. Dropout is active in training mode only."""
+    channels_last. Dropout is active in training mode only; ``remat``
+    recomputes each ResnetBlocWithAttn in the backward."""
 
     def __init__(self, in_channel=6, out_channel=3, inner_channel=32,
                  norm_groups=32, channel_mults=(1, 2, 4, 8, 8), attn_res=(8,),
                  res_blocks=3, dropout=0.0, image_size=128,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat=False):
         super().__init__()
+        self.remat = remat
         self.in_channel = in_channel
         self.inner_channel = inner_channel
         self.channel_mults = tuple(channel_mults)
@@ -261,18 +298,21 @@ class UNet(nn.Module):
         e = mlp[0](noise_level).to(self.dtype)
         emb = _linear(mlp[3], F.silu(_linear(mlp[1], e)))
 
+        rba = (functools.partial(remat_block, generator=generator)
+               if self.remat and torch.is_grad_enabled()
+               else lambda layer, x, emb: layer(x, emb, generator))
         x = _conv(self.downs[0], x.to(self.dtype).contiguous(memory_format=CL))
         feats = [x]
         for layer in self.downs[1:]:
-            x = layer(x, emb, generator) \
+            x = rba(layer, x, emb) \
                 if isinstance(layer, ResnetBlocWithAttn) else layer(x)
             feats.append(x)
         for layer in self.mid:
-            x = layer(x, emb, generator)
+            x = rba(layer, x, emb)
         for layer in self.ups:
             if isinstance(layer, ResnetBlocWithAttn):
                 x = torch.cat([x, feats.pop()], dim=1)
-                x = layer(x.contiguous(memory_format=CL), emb, generator)
+                x = rba(layer, x.contiguous(memory_format=CL), emb)
             else:
                 x = layer(x)
         return self.final_conv(x).float()

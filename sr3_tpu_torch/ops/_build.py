@@ -40,6 +40,10 @@ _SIGNATURES = {
     "sr3_gn_workspace_floats": ([_I] * 3, _L),
     # x, gamma, beta, y, workspace, B, HW, C, G, eps, swish, dtype, stream
     "sr3_group_norm": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # B, HW, C, dtype
+    "sr3_gn_stats_workspace_floats": ([_I] * 4, _L),
+    # x, s1, s2, workspace, B, HW, C, dtype, stream
+    "sr3_gn_stats": ([_P] * 4 + [_I] * 4 + [_P], _I),
     # x, pre_scale, pre_bias, gamma, beta, w, bias, res, y, workspace, B, H,
     # W, Cin, Cout, G, eps, dtype, stream
     "sr3_gn_silu_conv3x3": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),

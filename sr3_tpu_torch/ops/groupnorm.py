@@ -1,4 +1,5 @@
-"""GroupNorm with optional SiLU (kernel K2, ``csrc/groupnorm.cu``).
+"""GroupNorm with optional SiLU: kernel K2 (``csrc/groupnorm.cu``) and, for
+large maps, the statistics route with kernel K3 (``csrc/gn_stats.cu``).
 
 Counterpart of ``sr3_tpu/ops/groupnorm.py``: ``group_norm_plain`` is the
 plain PyTorch version of the XLA spec ``group_norm_swish_xla`` (float32
@@ -7,7 +8,18 @@ one-pass sum / sum-of-squares statistics, variance clamped at 0, eps 1e-5);
 CUDA tensor. ``group_norm`` is differentiable: its backward is the JAX
 package's hand formula (``_gn_swish_fwd_bwd``), ``group_norm_bwd_plain``, in
 plain PyTorch on either device, as it is XLA and not a Pallas kernel there.
-Tensors are logical NCHW in ``torch.channels_last`` memory.
+
+On maps of H*W >= 256^2 (``STATS_MIN_HW``) ``group_norm`` takes the
+statistics route instead, the counterpart of ``_gn_swish_stats_fwd_bwd``:
+``gn_stats`` gives the per-(batch, channel) float32 sums (``gn_stats_plain``
+for a CPU tensor, kernel K3 for a CUDA tensor), ``_group_fold`` turns them
+into per-channel mean and rstd, and the normalize (+SiLU) is plain PyTorch,
+as it is XLA there. Its backward is the same hand formula on the statistics
+the forward stashed, with no second pass over x for them. The JAX package
+takes that route only on a TPU and behind an environment variable; in the
+port the kernels are the default on CUDA, and the CPU takes the same route
+with the plain sums. Tensors are logical NCHW in ``torch.channels_last``
+memory.
 """
 
 from __future__ import annotations
@@ -17,6 +29,9 @@ import torch
 from sr3_tpu_torch.ops import _build
 
 counter = _build.LaunchCount("group_norm")
+stats_counter = _build.LaunchCount("gn_stats")
+# maps of at least this many pixels take the statistics route (K3)
+STATS_MIN_HW = 256 * 256
 
 
 def check_channels_last(x, name="x"):
@@ -37,14 +52,26 @@ def stats_workspace(lib, x):
     return torch.empty(n, dtype=torch.float32, device=x.device)
 
 
-def group_norm_plain(x, weight, bias, num_groups, eps=1e-5, swish=True):
-    """x: (B,C,H,W). weight/bias: (C,). Same shape, dtype and layout as x."""
+def _grouped(x, num_groups):
+    """x (B,C,H,W) as float32 (B, G, C/G, H, W)."""
     b, c, h, w = x.shape
-    xf = x.float().reshape(b, num_groups, c // num_groups, h, w)
+    return x.float().reshape(b, num_groups, c // num_groups, h, w)
+
+
+def _group_stats(xf, eps):
+    """One-pass group mean and rstd of grouped float32 xf, each
+    (B, G, 1, 1, 1)."""
     mean = xf.mean(dim=(2, 3, 4), keepdim=True)
     msq = xf.square().mean(dim=(2, 3, 4), keepdim=True)
     var = (msq - mean.square()).clamp_min(0.0)
-    xn = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, h, w)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_plain(x, weight, bias, num_groups, eps=1e-5, swish=True):
+    """x: (B,C,H,W). weight/bias: (C,). Same shape, dtype and layout as x."""
+    xf = _grouped(x, num_groups)
+    mean, rstd = _group_stats(xf, eps)
+    xn = ((xf - mean) * rstd).reshape(x.shape)
     xn = xn * weight.float()[None, :, None, None] \
         + bias.float()[None, :, None, None]
     if swish:
@@ -52,24 +79,17 @@ def group_norm_plain(x, weight, bias, num_groups, eps=1e-5, swish=True):
     return xn.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def group_norm_bwd_plain(x, weight, bias, g, num_groups, eps=1e-5,
-                         swish=True):
-    """(dx, dweight, dbias) of ``group_norm_plain`` for the output gradient
-    g (the hand formula of ``_gn_swish_fwd_bwd``): the statistics recomputed
-    in one pass, the variance clamped at 0, the SiLU derivative when
-    ``swish``. dx has x's dtype and layout; dweight and dbias are float32
-    (C,)."""
-    b, c, h, w = x.shape
-    shape = (b, num_groups, c // num_groups, h, w)
-    xf = x.float().reshape(shape)
-    mean = xf.mean(dim=(2, 3, 4), keepdim=True)
-    msq = xf.square().mean(dim=(2, 3, 4), keepdim=True)
-    var = (msq - mean.square()).clamp_min(0.0)
-    rstd = torch.rsqrt(var + eps)
+def _gn_bwd(xf, weight, bias, g, mean, rstd, swish, dtype):
+    """The hand backward of GroupNorm(+SiLU) of grouped float32 xf given its
+    statistics (mean and rstd broadcast against xf). Returns (dx, dweight,
+    dbias): dx (B,C,H,W) of ``dtype`` in channels_last memory, the others
+    float32 (C,)."""
+    b, num_groups, cg, h, w = xf.shape
+    c = num_groups * cg
     xhat = (xf - mean) * rstd
-    per_channel = (1, num_groups, c // num_groups, 1, 1)
+    per_channel = (1, num_groups, cg, 1, 1)
     sc = weight.float().reshape(per_channel)
-    dz = g.float().reshape(shape)
+    dz = g.float().reshape(xf.shape)
     if swish:
         z = xhat * sc + bias.float().reshape(per_channel)
         s = torch.sigmoid(z)
@@ -80,8 +100,20 @@ def group_norm_bwd_plain(x, weight, bias, g, num_groups, eps=1e-5,
     m1 = dzg.mean(dim=(2, 3, 4), keepdim=True)
     m2 = (dzg * xhat).mean(dim=(2, 3, 4), keepdim=True)
     dx = (rstd * (dzg - m1 - xhat * m2)).reshape(b, c, h, w)
-    return (dx.to(x.dtype).contiguous(memory_format=torch.channels_last),
+    return (dx.to(dtype).contiguous(memory_format=torch.channels_last),
             dweight, dbias)
+
+
+def group_norm_bwd_plain(x, weight, bias, g, num_groups, eps=1e-5,
+                         swish=True):
+    """(dx, dweight, dbias) of ``group_norm_plain`` for the output gradient
+    g (the hand formula of ``_gn_swish_fwd_bwd``): the statistics recomputed
+    in one pass, the variance clamped at 0, the SiLU derivative when
+    ``swish``. dx has x's dtype and layout; dweight and dbias are float32
+    (C,)."""
+    xf = _grouped(x, num_groups)
+    mean, rstd = _group_stats(xf, eps)
+    return _gn_bwd(xf, weight, bias, g, mean, rstd, swish, x.dtype)
 
 
 def _group_norm_fwd(x, weight, bias, num_groups, eps, swish):
@@ -121,13 +153,119 @@ class _GroupNorm(torch.autograd.Function):
         return dx, dw.to(weight.dtype), db.to(bias.dtype), None, None, None
 
 
-def group_norm(x, weight, bias, num_groups, eps=1e-5, swish=True):
-    """GroupNorm(+SiLU): the plain version on the CPU, kernel K2 on CUDA;
-    differentiable in x, weight and bias."""
+def gn_stats_plain(x):
+    """(s1, s2): float32 (B, C) sums of x and of x^2 over the pixels of
+    x (B,C,H,W)."""
+    xf = x.float()
+    return xf.sum(dim=(2, 3)), xf.square().sum(dim=(2, 3))
+
+
+def gn_stats(x):
+    """Per-(batch, channel) float32 sums (s1, s2) of x and x^2: the plain
+    version on the CPU, kernel K3 on CUDA."""
+    check_channels_last(x)
+    if x.device.type == "cpu":
+        return gn_stats_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_stats runs on cpu or cuda, not {x.device}")
+    b, c, h, w = x.shape
+    if x.data_ptr() % 16:
+        raise ValueError("x must start 16-byte aligned")
+    lib = _build.load_library()
+    code = _build.dtype_code(x)
+    n = lib.sr3_gn_stats_workspace_floats(b, h * w, c, code)
+    if n < 0:
+        raise ValueError(f"the statistics kernel takes C a multiple of "
+                         f"{16 // x.element_size()} and at most "
+                         f"{256 * 16 // x.element_size()} for {x.dtype}, and "
+                         f"B <= 65535; got B={b}, C={c}")
+    ws = torch.empty(n, dtype=torch.float32, device=x.device)
+    s1, s2 = (torch.empty((b, c), dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    err = lib.sr3_gn_stats(x.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+                           ws.data_ptr(), b, h * w, c, code,
+                           _build.stream_of(x))
+    _build.check(err, "sr3_gn_stats")
+    stats_counter.n += 1
+    return s1, s2
+
+
+def _group_fold(s1, s2, n, num_groups, eps):
+    """(B, C) channel sums over n pixels -> per-channel (B, C) mean and rstd
+    of their groups (one-pass variance clamped at 0)."""
+    b, c = s1.shape
+    cg = c // num_groups
+    cnt = float(n * cg)
+    mean_g = s1.reshape(b, num_groups, cg).sum(dim=2) / cnt
+    var_g = (s2.reshape(b, num_groups, cg).sum(dim=2) / cnt
+             - mean_g.square()).clamp_min(0.0)
+    rstd_g = torch.rsqrt(var_g + eps)
+    return mean_g.repeat_interleave(cg, dim=1), \
+        rstd_g.repeat_interleave(cg, dim=1)
+
+
+def _stats_fwd(x, weight, bias, num_groups, eps, swish):
+    """The statistics route's forward: (y, mean_c, rstd_c)."""
+    b, c, h, w = x.shape
+    mean_c, rstd_c = _group_fold(*gn_stats(x), h * w, num_groups, eps)
+    sc = weight.float()[None] * rstd_c
+    off = bias.float()[None] - mean_c * sc
+    z = x.float() * sc[:, :, None, None] + off[:, :, None, None]
+    if swish:
+        z = z * torch.sigmoid(z)
+    y = z.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    return y, mean_c, rstd_c
+
+
+class _GroupNormStats(torch.autograd.Function):
+    """Counterpart of ``_gn_swish_stats_fwd_bwd``: K3 statistics and a torch
+    normalize; the backward is the hand formula on the stashed (B, C)
+    statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, swish):
+        y, mean_c, rstd_c = _stats_fwd(x, weight, bias, num_groups, eps,
+                                       swish)
+        ctx.save_for_backward(x, weight, bias, mean_c, rstd_c)
+        ctx.cfg = (num_groups, swish)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias, mean_c, rstd_c = ctx.saved_tensors
+        num_groups, swish = ctx.cfg
+        b, c = mean_c.shape
+        per_group = (b, num_groups, c // num_groups, 1, 1)
+        dx, dw, db = _gn_bwd(_grouped(x, num_groups), weight, bias, g,
+                             mean_c.reshape(per_group),
+                             rstd_c.reshape(per_group), swish, x.dtype)
+        return dx, dw.to(weight.dtype), db.to(bias.dtype), None, None, None
+
+
+def _check_groups(x, num_groups):
     check_channels_last(x)
     c = x.shape[1]
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
+
+
+def group_norm_stats(x, weight, bias, num_groups, eps=1e-5, swish=True):
+    """GroupNorm(+SiLU) through the statistics route at any map size:
+    ``gn_stats`` (kernel K3 on CUDA), the group fold and a torch normalize;
+    differentiable in x, weight and bias."""
+    _check_groups(x, num_groups)
+    if _build.needs_grad(x, weight, bias):
+        return _GroupNormStats.apply(x, weight, bias, num_groups, eps, swish)
+    return _stats_fwd(x, weight, bias, num_groups, eps, swish)[0]
+
+
+def group_norm(x, weight, bias, num_groups, eps=1e-5, swish=True):
+    """GroupNorm(+SiLU): the plain version on the CPU, kernel K2 on CUDA;
+    maps of H*W >= STATS_MIN_HW take the statistics route
+    (``group_norm_stats``). Differentiable in x, weight and bias."""
+    _check_groups(x, num_groups)
+    if x.shape[2] * x.shape[3] >= STATS_MIN_HW:
+        return group_norm_stats(x, weight, bias, num_groups, eps, swish)
     if _build.needs_grad(x, weight, bias):
         return _GroupNorm.apply(x, weight, bias, num_groups, eps, swish)
     return _group_norm_fwd(x, weight, bias, num_groups, eps, swish)

@@ -17,7 +17,7 @@ import itertools
 import logging
 
 import sr3_tpu_torch.utils.config as Config
-from sr3_tpu_torch.data.loader import create_dataloader
+from sr3_tpu_torch.data.loader import create_dataloader, create_dataset
 from sr3_tpu_torch.training.evaluation import validate_in_train
 from sr3_tpu_torch.training.loops import train_loop
 from sr3_tpu_torch.training.trainer import create_model
@@ -56,15 +56,12 @@ def main(argv=None):
     if opt["enable_wandb"]:
         import wandb
 
-        from sr3_tpu.utils.wandb_logger import WandbLogger
+        from sr3_tpu_torch.utils.wandb_logger import WandbLogger
 
         wandb_logger = WandbLogger(opt)
         wandb.define_metric("validation/val_step")
         wandb.define_metric("epoch")
         wandb.define_metric("validation/*", step_metric="val_step")
-
-    # sr3_tpu.data decodes PNGs with Pillow; imported only where used
-    from sr3_tpu.data.loader import create_dataset
 
     train_set = create_dataset(opt["datasets"]["train"], "train")
     train_loader = create_dataloader(train_set, opt["datasets"]["train"],

@@ -17,7 +17,7 @@ import os
 import numpy as np
 import torch
 
-import sr3_tpu.utils.metrics as Metrics
+import sr3_tpu_torch.utils.metrics as Metrics
 
 logger = logging.getLogger("base")
 

@@ -1,6 +1,6 @@
-"""The port's inference and training CLIs, its independence from JAX, and
-chip_smoke.py's refusal to run without a card, as real subprocesses on the
-CPU."""
+"""The port's inference and training CLIs, its independence from JAX and
+from the JAX package, and chip_smoke.py's refusal to run without a card, as
+real subprocesses on the CPU."""
 
 import ast
 import json
@@ -13,6 +13,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "dataset", "fixtures_16_128")
+FIXTURES_512 = os.path.join(REPO, "dataset", "fixtures_64_512")
 SCHED = {"schedule": "linear", "n_timestep": 10, "linear_start": 1e-6,
          "linear_end": 1e-2}
 
@@ -97,6 +98,58 @@ def test_train_cli_logs_validates_and_saves(tmp_path):
             for tag in ("sr", "hr", "lr", "inf")} <= results
 
 
+def test_train_cli_64_512_on_the_ports_dataset(tmp_path):
+    """``python -m sr3_tpu_torch.sr -p train`` on the 64->512 fixtures
+    through the port's own dataset: 2 steps of a tiny remat UNet at 512^2
+    (its top-level dropout Blocks take the GroupNorm statistics route), a
+    validation and a checkpoint at step 2. Five levels put the mid block's
+    attention at 32x32: at fewer, the plain attention of the CPU would
+    materialize a (H*W)^2 matrix of tens of GB."""
+    opt = _config()
+    opt["phase"] = "train"
+    data = {"name": "FIX512", "dataroot": FIXTURES_512, "datatype": "img",
+            "l_resolution": 64, "r_resolution": 512}
+    opt["datasets"] = {
+        "train": dict(data, mode="HR", batch_size=2, num_workers=0,
+                      use_shuffle=True, data_len=-1),
+        "val": dict(data, mode="LRHR", data_len=1),
+    }
+    opt["model"]["unet"].update(inner_channel=8,
+                                channel_multiplier=[1, 2, 4, 8, 8],
+                                attn_res=[], dropout=0.2, remat=True)
+    opt["model"]["diffusion"]["image_size"] = 512
+    opt["train"].update(n_iter=2, val_freq=2, save_checkpoint_freq=2,
+                        print_freq=1)
+    cfg = tmp_path / "port512.json"
+    cfg.write_text(json.dumps(opt))
+    _run(["-m", "sr3_tpu_torch.sr", "-p", "train", "-c", str(cfg)], tmp_path)
+    (exp,) = (tmp_path / "experiments").iterdir()
+    log = (exp / "logs" / "train.log").read_text()
+    losses = [float(line.split("l_pix: ")[1].split()[0])
+              for line in log.splitlines() if "l_pix: " in line]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert "Dataset [LRHRDataset - FIX512] is created." in log
+    assert log.count("# Validation # PSNR: ") == 1
+    assert {p.name for p in (exp / "checkpoint").iterdir()} == {
+        "I2_E1_gen.pth", "I2_E1_opt.pth"}
+    # -p train keeps 3 val images
+    results = {p.name for p in (exp / "results" / "1").iterdir()}
+    assert {f"2_{i}_{tag}.png" for i in (1, 2, 3)
+            for tag in ("sr", "hr", "lr", "inf")} == results
+
+
+def _sr3_tpu_imports(path):
+    """Names of the sr3_tpu modules that a source file imports, at top
+    level or inside a function."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = {a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names}
+    names |= {node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module}
+    return {m for m in names if m.split(".")[0] == "sr3_tpu"}
+
+
 def test_port_imports_no_jax(tmp_path):
     script = textwrap.dedent(f"""
         import importlib, json, os, pkgutil, sys
@@ -131,13 +184,23 @@ def test_port_imports_no_jax(tmp_path):
         assert trainer.step == 4 and os.path.isfile("I4_E4_gen.pth")
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                         "orbax")]
+                                         "orbax", "sr3_tpu")]
         assert not loaded, loaded
         print("modules", len(names))
     """)
     proc = _run(["-c", script], tmp_path)
     n = int(proc.stdout.split("modules")[-1])
-    assert n >= 12
+    assert n >= 17
+    # no module of the port and not chip_smoke.py imports the JAX package,
+    # not even its numpy-only host modules
+    sources = [os.path.join(root, f)
+               for root, _, files in os.walk(os.path.join(REPO,
+                                                          "sr3_tpu_torch"))
+               for f in files if f.endswith(".py")]
+    assert len(sources) >= n
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    foreign = {os.path.relpath(p, REPO): _sr3_tpu_imports(p) for p in sources}
+    assert not any(foreign.values()), foreign
     # chip_smoke.py names only the port: the JAX package's host code it
     # needs comes in through the port's own modules
     with open(os.path.join(REPO, "chip_smoke.py")) as f:

@@ -7,14 +7,16 @@ imports it), run them with
   python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
 Tolerances, relative to max|plain|: float32 1e-4 for K1, K4, K5 and K6 and
-1e-5 for K2 (float32 sums in another order); bfloat16 2e-2 for K1 and K2
+1e-5 for K2 and the statistics route (float32 sums in another order);
+bfloat16 2e-2 for K1, K2 and the route
 (the plain version rounds intermediate results to bf16, 2^-8 relative each,
 where a kernel rounds once) and 1e-4 for K4, K5 and K6 (both sides compute
 in float32 from the same inputs). The reasons are spelled out in each
 kernel's source header. The autograd Functions against autograd of the
 plain versions: float32 1e-4; bfloat16 2e-2 (each side rounds its input
 gradients to bf16 once, and K2's hand backward differs from autograd's
-composition in where it rounds).
+composition in where it rounds). K3's sums against float64 sums of the same
+inputs: s1 within 1e-5 of sum|x|, s2 within 1e-5 of s2.
 """
 
 import pytest
@@ -107,6 +109,45 @@ def test_k2_matches_plain(gen, dtype, b, c, hw, groups, swish):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w", [(2, 64, 512, 512), (2, 128, 256, 256),
+                                     (2, 96, 300, 300)])
+def test_k3_and_statistics_route_match_plain(gen, dtype, b, c, h, w):
+    """K3 against float64 sums and gn_stats_plain; group_norm on these maps
+    takes the statistics route and matches group_norm_plain."""
+    x = 3 * torch.randn(b, c, h, w, device="cuda", generator=gen) + 1
+    x = x.to(dtype).contiguous(memory_format=CL)
+    n = groupnorm.stats_counter.n
+    s1, s2 = groupnorm.gn_stats(x)
+    assert groupnorm.stats_counter.n == n + 1
+    p1, p2 = groupnorm.gn_stats_plain(x)
+    torch.cuda.synchronize()
+    xd = x.double()
+    r1, r2 = xd.sum(dim=(2, 3)), xd.square().sum(dim=(2, 3))
+    for got, plain, ref, scale in ((s1, p1, r1, xd.abs().sum(dim=(2, 3))),
+                                   (s2, p2, r2, r2)):
+        assert got.dtype == torch.float32 and got.shape == (b, c)
+        assert ((got.double() - ref).abs() / scale).max().item() <= 1e-5
+        assert ((got.double() - plain.double()).abs() / scale).max().item() \
+            <= 1e-5
+    s = 1 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+    t = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    out = groupnorm.group_norm(x, s, t, 16, swish=True)
+    assert groupnorm.stats_counter.n == n + 2
+    assert out.is_contiguous(memory_format=CL) and out.dtype == dtype
+    ref = groupnorm.group_norm_plain(x, s, t, 16, swish=True)
+    assert rel(out, ref) <= TOL[dtype]["k2"]
+
+
+def test_k3_rejects_what_it_does_not_take(gen):
+    x = torch.randn(1, 20, 256, 256, device="cuda", generator=gen)
+    x = x.to(torch.bfloat16).contiguous(memory_format=CL)  # 20 % 8 != 0
+    n = groupnorm.stats_counter.n
+    with pytest.raises(ValueError, match="multiple of 8"):
+        groupnorm.gn_stats(x)
+    assert groupnorm.stats_counter.n == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,seq,d", [(2, 256, 512), (2, 64, 512),
                                       (3, 100, 64)])
 def test_k4_matches_plain(gen, dtype, bh, seq, d):
@@ -121,7 +162,8 @@ def test_k4_matches_plain(gen, dtype, bh, seq, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,seq,d", [(4, 256, 512), (4, 64, 512),
-                                      (3, 100, 64)])
+                                      (3, 100, 64), (2, 4096, 512),
+                                      (1, 16384, 256)])
 def test_k4_lse_k5_k6_match_plain(gen, dtype, bh, seq, d):
     q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=gen)
                .to(dtype) for _ in range(3))
@@ -170,6 +212,25 @@ def test_autograd_functions_match_plain_autograd(gen, op, dtype):
     for f in (wrapper, plain):
         leaves = [t.detach().clone().requires_grad_() for t in inputs]
         out = call(f, leaves)
+        w = torch.randn(out.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(1))
+        (out.float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype
+        assert rel(got, ref) <= TOL[dtype]["grad"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_statistics_route_function_matches_plain_autograd(gen, dtype):
+    x = (3 * torch.randn(2, 64, 256, 256, device="cuda", generator=gen) + 1)
+    inputs = [x.to(dtype).contiguous(memory_format=CL),
+              1 + 0.2 * torch.randn(64, device="cuda", generator=gen),
+              0.1 * torch.randn(64, device="cuda", generator=gen)]
+    grads = []
+    for f in (groupnorm.group_norm, groupnorm.group_norm_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = f(*leaves, 16, swish=True)
         w = torch.randn(out.shape, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(1))
         (out.float() * w).sum().backward()
