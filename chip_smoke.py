@@ -10,10 +10,11 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
   2. build: compile sr3_tpu_torch/csrc with nvcc (one process per source);
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at every shape the SR3 16->128 sampling path gives it (batch
-     2), in float32 and bfloat16, error relative to max|plain|; K4's
-     logsumexp and the backward kernels K5 / K6 at the training shapes and a
-     ragged one; the autograd Functions of K1, K2 and K4 against autograd of
-     their plain versions, every input gradient;
+     2), in float32 and bfloat16 (each kernel's route by dtype: KERNELS),
+     error relative to max|plain| (TOL); K4's logsumexp and the backward
+     kernels K5 / K6 at the training shapes and a ragged one; the autograd
+     Functions of K1, K2 and K4 against autograd of their plain versions,
+     every input gradient;
   4. full-width model: the 97.8M-parameter SR3 16->128 UNet (random seeded
      weights), one float32 forward on the card (kernels) against the same
      weights on the CPU (plain versions), and the bf16 sampling copy of the
@@ -45,7 +46,8 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      input gradients;
  11. long-sequence attention: K4 with its logsumexp, K5 and K6 against the
      plain versions at 4096 and 1024 tokens (head_dim 512) and at 16384
-     tokens (head_dim 256);
+     tokens (head_dim 256); the bf16 K4 autograd Function at 4096 and 16384
+     tokens;
  12. 64->512 training path: the full-width train-phase Trainer (70.0M
      parameters, batch 2, bf16, dropout 0.2, remat) through train_loop for
      TRAIN_STEPS_512 steps; counters zeroed just before; K1-K6 launched, K3
@@ -54,13 +56,17 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      gradient that moved;
  13. 64->512 training gradients: float32 batch 1, kernels against the plain
      ops (GRAD_TOL), and remat on against remat off (REMAT_TOL);
- 14. 64->512 training timing: median train step (CUDA events), train
+ 14. 64->512 bf16 attention gradients: bf16 batch 1, the loss and every
+     attention parameter's gradient with K4-K6 against attention_plain
+     swapped into the same model (FORWARD_TOL_BF16);
+ 15. 64->512 training timing: median train step (CUDA events), train
      images/s, peak memory, and a torch.profiler window (device time by op,
      device busy share);
- 15. 64->512 serving path: GroupedEvaluator.run_sr on 2 images, T=10, 512^2
+ 16. 64->512 serving path: GroupedEvaluator.run_sr on 2 images, T=10, 512^2
      bf16, frames finite, K1, K2 and K4 launched; median ms of a batch-8
-     p_sample_step at 512^2 (the config's val batch);
- 16. 64->512 kernel timing: each kernel at the path's shapes (bf16, batch
+     p_sample_step at 512^2 (the config's val batch) and a torch.profiler
+     window over it (device time by op, device busy share);
+ 17. 64->512 kernel timing: each kernel at the path's shapes (bf16, batch
      2; K4-K6 also at 16384 tokens) beside its plain version and the one
      PyTorch call that computes the same function where there is one
      (library_ms; the port never calls it), each as CUDA-event ms per call
@@ -88,14 +94,18 @@ BATCH_CHECK = 2
 BATCH_TIME = 8
 TRAIN_STEPS = 6
 TIME_STEPS = 12
-# K5 / K6 and K4's logsumexp: both sides compute in float32 from the same
-# inputs (attention_bwd.cu header); the autograd Functions in bf16: each
+# bf16: K4's o and K5's dk, dv round P (and dO, dS) to bf16 before their
+# products on the tensor-core route (attention.cu, attention_bwd.cu
+# headers); K4's logsumexp ("flash_attention_lse") and K6 compute in float32
+# from the same inputs as the plain versions; the autograd Functions: each
 # side rounds its input gradients to bf16 once
 TOL = {"float32": {"gn_silu_conv3x3": 1e-4, "group_norm": 1e-5,
-                   "flash_attention_fwd": 1e-4, "flash_attention_bwd_dkv": 1e-4,
+                   "flash_attention_fwd": 1e-4, "flash_attention_lse": 1e-4,
+                   "flash_attention_bwd_dkv": 1e-4,
                    "flash_attention_bwd_dq": 1e-4, "function": 1e-4},
        "bfloat16": {"gn_silu_conv3x3": 2e-2, "group_norm": 2e-2,
-                    "flash_attention_fwd": 1e-4, "flash_attention_bwd_dkv": 1e-4,
+                    "flash_attention_fwd": 2e-2, "flash_attention_lse": 1e-4,
+                    "flash_attention_bwd_dkv": 2e-2,
                     "flash_attention_bwd_dq": 1e-4, "function": 2e-2}}
 # float32 loss and gradients of the full-width UNet, kernels vs plain ops
 GRAD_TOL = 1e-3
@@ -140,19 +150,28 @@ REMAT_TOL = 1e-5
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# name: (source, the TPU kernel it replaces, route by input dtype)
+FMA, MMA = "float32 FMA", "bf16 mma.sync tensor cores, float32 accumulate"
 KERNELS = {
     "gn_silu_conv3x3": ("sr3_tpu_torch/csrc/conv_fused.cu",
-                        "sr3_tpu/ops/conv_fused.py:117"),
+                        "sr3_tpu/ops/conv_fused.py:117",
+                        {"float32": FMA, "bfloat16": MMA}),
     "group_norm": ("sr3_tpu_torch/csrc/groupnorm.cu",
-                   "sr3_tpu/ops/groupnorm.py:237"),
+                   "sr3_tpu/ops/groupnorm.py:237",
+                   {"float32": FMA, "bfloat16": FMA}),
     "flash_attention_fwd": ("sr3_tpu_torch/csrc/attention.cu",
-                            "sr3_tpu/ops/attention.py:58"),
+                            "sr3_tpu/ops/attention.py:58",
+                            {"float32": FMA, "bfloat16": MMA + ", cp.async"}),
     "flash_attention_bwd_dkv": ("sr3_tpu_torch/csrc/attention_bwd.cu",
-                                "sr3_tpu/ops/attention.py:163"),
+                                "sr3_tpu/ops/attention.py:163",
+                                {"float32": FMA,
+                                 "bfloat16": MMA + ", cp.async"}),
     "flash_attention_bwd_dq": ("sr3_tpu_torch/csrc/attention_bwd.cu",
-                               "sr3_tpu/ops/attention.py:203"),
+                               "sr3_tpu/ops/attention.py:203",
+                               {"float32": FMA, "bfloat16": FMA}),
     "gn_stats": ("sr3_tpu_torch/csrc/gn_stats.cu",
-                 "sr3_tpu/ops/groupnorm.py:66"),
+                 "sr3_tpu/ops/groupnorm.py:66",
+                 {"float32": FMA, "bfloat16": FMA}),
 }
 FORWARD_KERNELS = ("gn_silu_conv3x3", "group_norm", "flash_attention_fwd")
 KERNELS_16_128 = FORWARD_KERNELS + ("flash_attention_bwd_dkv",
@@ -242,6 +261,44 @@ def build_phase():
     _build.load_library()
     print(f"built {os.path.relpath(path, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with open(path + ".log") as f:
+        print_ptxas(f.read())
+
+
+def print_ptxas(log):
+    """Registers and spill stores of each kernel, from ptxas -v output."""
+    import re
+
+    name, spill = None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            print(f"  ptxas {name}: {m.group(1)} registers, {spill} bytes "
+                  f"spill stores", flush=True)
+            name, spill = None, 0
+
+
+def _kernel_name(mangled):
+    """`flash_fwd_kernel<float>` from a mangled kernel name: the
+    length-prefixed identifier that ends in `_kernel`, and its dtype."""
+    import re
+
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(len(run.group())):
+            n, at = int(run.group()[i:]), run.end()
+            ident = mangled[at:at + n]
+            if len(ident) == n and ident.endswith("_kernel"):
+                rest = mangled[at + n:]
+                return ident + ("<float>" if rest.startswith("If") else
+                                "<bf16>" if rest.startswith("I13__nv_bf")
+                                else "")
+    return mangled
 
 
 def _k1_inputs(torch, g, b, cin, cout, hw, dtype, film):
@@ -308,8 +365,9 @@ def kernel_phase(torch, errs):
             o, lse = attention.attention_fwd(q, k, v, d ** -0.5)
             ref_o, ref_lse = attention.attention_fwd_plain(q, k, v, d ** -0.5)
             record("flash_attention_fwd", dn, label + " with lse: o", o, ref_o)
-            record("flash_attention_fwd", dn, label + " with lse: lse", lse,
-                   ref_lse)
+            check(torch, errs, failures, "flash_attention_fwd", dn,
+                  label + " with lse: lse", lse, ref_lse,
+                  tol=TOL[dn]["flash_attention_lse"])
             dsum = (gr * o).sum(-1)
             dq, dk, dv = attention.attention_bwd(q, k, v, gr, lse, dsum,
                                                  d ** -0.5)
@@ -560,15 +618,15 @@ def training_phase(torch):
     return trainer, launches
 
 
-def _f32_train_case(torch, config, size, seed):
-    """A float32 train-mode diffusion of ``config`` on the card and a
-    seeded batch-1 loss with injected noise and sqrt-gamma:
+def _train_case(torch, config, size, seed, dtype="float32"):
+    """A train-mode diffusion of ``config`` computing in ``dtype`` on the
+    card and a seeded batch-1 loss with injected noise and sqrt-gamma:
     ``loss_and_grads()`` runs it with a fresh dropout generator of one seed
     and returns (loss, {name: grad})."""
     from sr3_tpu_torch.models.networks import define_G
     from sr3_tpu_torch.models.schedule import make_schedule
 
-    opt = _load_opt(dtype="float32", phase="train", config=config)
+    opt = _load_opt(dtype=dtype, phase="train", config=config)
     diffusion = define_G(opt, device="cuda", seed=0)
     net = diffusion.denoise_fn.train()
     sched = make_schedule(opt["model"]["beta_schedule"]["train"], "cuda")
@@ -640,7 +698,7 @@ def _kernels_vs_plain(torch, loss_and_grads, names, label):
 
 @phase("training gradients")
 def grad_check_phase(torch):
-    _, loss_and_grads = _f32_train_case(torch, CONFIG, 128, seed=5)
+    _, loss_and_grads = _train_case(torch, CONFIG, 128, seed=5)
     _kernels_vs_plain(torch, loss_and_grads, KERNELS_16_128, "")
 
 
@@ -681,6 +739,7 @@ def train_timing_phase(torch, trainer):
         scale = d ** -0.5
         o, lse = attention.attention_fwd(q, k, v, scale)
         dsum = (gr * o).sum(-1)
+        gr16 = gr.to(torch.bfloat16)  # K5's dO, as attention_bwd rounds it
         out = [torch.empty_like(gr) for _ in range(3)]
         plain_bwd = _time_ms(torch, lambda: attention.attention_bwd_plain(
             q, k, v, gr, lse, dsum, scale))
@@ -691,7 +750,7 @@ def train_timing_phase(torch, trainer):
                     q, k, v, scale))),
             "flash_attention_bwd_dkv": (lambda: attention._bwd_kernel(
                 "sr3_flash_attention_bwd_dkv", attention.dkv_counter, q, k,
-                v, gr, lse, dsum, out[1:], scale), plain_bwd),
+                v, gr16, lse, dsum, out[1:], scale), plain_bwd),
             "flash_attention_bwd_dq": (lambda: attention._bwd_kernel(
                 "sr3_flash_attention_bwd_dq", attention.dq_counter, q, k, v,
                 gr, lse, dsum, out[:1], scale), plain_bwd),
@@ -855,7 +914,8 @@ def long_attention_phase(torch, errs):
             check(torch, errs, failures, "flash_attention_fwd", dn,
                   label + " with lse: o", o, ref_o)
             check(torch, errs, failures, "flash_attention_fwd", dn,
-                  label + " with lse: lse", lse, ref_lse)
+                  label + " with lse: lse", lse, ref_lse,
+                  tol=TOL[dn]["flash_attention_lse"])
             del ref_o, ref_lse
             dsum = (gr * o).sum(-1)
             dq, dk, dv = attention.attention_bwd(q, k, v, gr, lse, dsum, scale)
@@ -869,6 +929,19 @@ def long_attention_phase(torch, errs):
                   label + ": dq", dq, rq)
             del rq, rk, rv
             torch.cuda.empty_cache()
+    # the K4 autograd Function (K4 with lse, then K5 and K6) in bf16 at the
+    # long shapes, against autograd of the plain version
+    for bh, seq, d in (LONG_SHAPES[0], LONG_SHAPES[2]):
+        inputs = [torch.randn(bh, seq, d, device="cuda", generator=g)
+                  .to(torch.bfloat16) for _ in range(3)]
+        grads = function_grads(torch, lambda f, t: f(*t, d ** -0.5),
+                               attention.attention, attention.attention_plain,
+                               inputs)
+        for i, (got, ref) in enumerate(zip(*grads)):
+            check_grad(torch, failures, f"attention {bh}x{seq}x{d}",
+                       "bfloat16", i, got, ref)
+        del inputs, grads
+        torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"long-sequence attention disagrees with the "
                              f"plain versions: {failures}")
@@ -935,7 +1008,7 @@ def grad_check_512_phase(torch):
     """Float32, batch 1, remat on: kernels against the plain ops swapped
     into the UNet (GRAD_TOL); then remat on against remat off with the same
     draws (REMAT_TOL)."""
-    net, loss_and_grads = _f32_train_case(torch, CONFIG_512, 512, seed=13)
+    net, loss_and_grads = _train_case(torch, CONFIG_512, 512, seed=13)
     _kernels_vs_plain(torch, loss_and_grads, KERNELS, " remat on")
     # cuDNN's default conv backward sums with atomics, in an order that
     # changes from run to run; its deterministic algorithms keep the two
@@ -958,11 +1031,52 @@ def grad_check_512_phase(torch):
                              f"{worst} {worst_rel}")
 
 
+@phase("64->512 bf16 attention gradients")
+def bf16_attention_grad_phase(torch):
+    """bf16, batch 1, remat on: the loss and the gradient of every attention
+    parameter with K4-K6 (the tensor-core routes of K4 and K5) against the
+    same bf16 model with attention_plain swapped into the UNet module; the
+    other kernels run on both sides, under cuDNN's deterministic algorithms.
+    Within FORWARD_TOL_BF16."""
+    from sr3_tpu_torch.models import unet as unet_module
+    from sr3_tpu_torch.ops import attention
+
+    _, loss_and_grads = _train_case(torch, CONFIG_512, 512, seed=18,
+                                    dtype="bfloat16")
+    names = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+    torch.backends.cudnn.deterministic = True
+    try:
+        for c in counters():
+            c.n = 0
+        kernels = loss_and_grads()
+        launches = launches_of(names)
+        unet_module.attention = attention.attention_plain
+        try:
+            plain = loss_and_grads()
+        finally:
+            unet_module.attention = attention.attention
+    finally:
+        torch.backends.cudnn.deterministic = False
+    attn = lambda r: (r[0], {n: gr for n, gr in r[1].items() if ".attn." in n})
+    kernels, plain = attn(kernels), attn(plain)
+    loss_rel, worst, worst_rel = _compare_grads(kernels, plain)
+    print(f"  bf16 batch 1 remat on, kernels {launches} vs attention_plain: "
+          f"loss {kernels[0]:.6f} vs {plain[0]:.6f} (rel {loss_rel:.3e}); "
+          f"worst of {len(plain[1])} attention-parameter gradients {worst}: "
+          f"rel {worst_rel:.3e}; tol {FORWARD_TOL_BF16:g}", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"an attention kernel did not launch: {launches}")
+    if not (loss_rel <= FORWARD_TOL_BF16 and worst_rel <= FORWARD_TOL_BF16):
+        raise AssertionError(f"bf16 attention gradients disagree: loss "
+                             f"{loss_rel}, {worst} {worst_rel}")
+
+
 @phase("64->512 serving path")
 def serving_512_phase(torch):
     """GroupedEvaluator.run_sr on 2 images, T=10 val schedule, 512^2 bf16;
     then the median ms of one batch-8 p_sample_step (the config's val
-    batch)."""
+    batch) and a torch.profiler window over it."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -1009,14 +1123,17 @@ def serving_512_phase(torch):
     cond = torch.rand(bt, 3, 512, 512, device="cuda", generator=gd) * 2 - 1
     img = torch.randn(bt, 3, 512, 512, device="cuda", generator=gd)
     steps = iter(range(1999, -1, -1))
+    step = lambda: trainer.diffusion.p_sample_step(
+        net, sched, img, next(steps), cond, generator=gd)
     with torch.inference_mode():
-        ms = _time_each(torch, lambda: trainer.diffusion.p_sample_step(
-            net, sched, img, next(steps), cond, generator=gd), 10)
-    step_ms = float(np.median(ms))
-    print(f"  UNet step (p_sample_step) B={bt} 512^2 {net.dtype}: median "
-          f"{step_ms:.3f} ms/step over {len(ms)} steps (min {min(ms):.3f}, "
-          f"max {max(ms):.3f}); 2000-step throughput extrapolated "
-          f"{bt / (2000 * step_ms / 1000):.5f} img/s", flush=True)
+        ms = _time_each(torch, step, 10)
+        step_ms = float(np.median(ms))
+        print(f"  UNet step (p_sample_step) B={bt} 512^2 {net.dtype}: median "
+              f"{step_ms:.3f} ms/step over {len(ms)} steps (min "
+              f"{min(ms):.3f}, max {max(ms):.3f}); 2000-step throughput "
+              f"extrapolated {bt / (2000 * step_ms / 1000):.5f} img/s",
+              flush=True)
+        _profile_steps(torch, step, PROFILE_STEPS_512)
     return launches
 
 
@@ -1053,6 +1170,38 @@ def _device_busy(torch, prof):
     return busy / 1000
 
 
+def _profile_steps(torch, step, n):
+    """A torch.profiler window over n calls of ``step``: wall and device
+    busy ms per step (union of device intervals) and device time by kernel,
+    printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000 / n
+    busy = _device_busy(torch, prof) / n
+    by_kernel = {}
+    for e in _device_events(torch, prof):
+        t, k = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (t + e.time_range.elapsed_us(), k + 1)
+    n_dev = sum(k for _, k in by_kernel.values())
+    print(f"  profiled {n} steps: wall {wall:.1f} ms/step, device busy "
+          f"{busy:.1f} ms/step ({100 * busy / wall:.1f}%), {n_dev / n:.0f} "
+          f"device ops/step; device time per step by kernel:", flush=True)
+    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    for name, (t, k) in rows[:16]:
+        print(f"    {t / 1000 / n:9.3f} ms  {k / n:7.1f}/step  {name[:90]}",
+              flush=True)
+    rest = sum(t for _, (t, _) in rows[16:]) / 1000 / n
+    print(f"    {rest:9.3f} ms  the other {len(rows) - 16} kernels",
+          flush=True)
+
+
 @phase("64->512 training timing")
 def train_timing_512_phase(torch, trainer):
     """Median train step (CUDA events), train img/s and peak memory at
@@ -1072,33 +1221,7 @@ def train_timing_512_phase(torch, trainer):
           f"{min(ms):.3f}, max {max(ms):.3f}); {b / (step_ms / 1000):.4f} "
           f"train img/s; peak device memory {peak:.2f} GiB", flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS_512):
-            trainer.optimize_parameters()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1000 / PROFILE_STEPS_512
-    busy = _device_busy(torch, prof) / PROFILE_STEPS_512
-    by_kernel = {}
-    for e in _device_events(torch, prof):
-        t, n = by_kernel.get(e.name, (0.0, 0))
-        by_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    n_dev = sum(n for _, n in by_kernel.values())
-    print(f"  profiled {PROFILE_STEPS_512} steps: wall {wall:.1f} ms/step, "
-          f"device busy {busy:.1f} ms/step ({100 * busy / wall:.1f}%), "
-          f"{n_dev / PROFILE_STEPS_512:.0f} device ops/step; device time "
-          f"per step by kernel:", flush=True)
-    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-    for name, (t, n) in rows[:16]:
-        print(f"    {t / 1000 / PROFILE_STEPS_512:9.3f} ms  "
-              f"{n / PROFILE_STEPS_512:7.1f}/step  {name[:90]}", flush=True)
-    rest = sum(t for _, (t, _) in rows[16:]) / 1000 / PROFILE_STEPS_512
-    print(f"    {rest:9.3f} ms  the other {len(rows) - 16} kernels",
-          flush=True)
+    _profile_steps(torch, trainer.optimize_parameters, PROFILE_STEPS_512)
     return step_ms
 
 
@@ -1207,6 +1330,7 @@ def _attention_entries(torch, g, entry, bh, seq, d):
     scale = d ** -0.5
     o, lse = attention.attention_fwd(q, k, v, scale)
     dsum = (gr * o).sum(-1)
+    gr16 = gr.to(dt)  # K5's dO, as attention_bwd rounds it
     outs = [torch.empty_like(gr) for _ in range(3)]
     shape = f"{bh}x{seq}x{d}"
     mm = 2 * bh * seq * seq * d  # one (seq x seq x d) product
@@ -1234,8 +1358,8 @@ def _attention_entries(torch, g, entry, bh, seq, d):
     entry("flash_attention_bwd_dkv", shape,
           lambda: attention._bwd_kernel(
               "sr3_flash_attention_bwd_dkv", attention.dkv_counter, q, k, v,
-              gr, lse, dsum, outs[1:], scale), plain_bwd, sdpa_bwd,
-          4 * mm, qkv_bytes + 4 * (gr.numel() + 2 * bh * seq)
+              gr16, lse, dsum, outs[1:], scale), plain_bwd, sdpa_bwd,
+          4 * mm, qkv_bytes + 2 * gr16.numel() + 4 * 2 * bh * seq
           + 2 * 4 * q.numel())
     entry("flash_attention_bwd_dq", shape,
           lambda: attention._bwd_kernel(
@@ -1271,6 +1395,7 @@ def main():
         long_attention_phase(torch, errs)
         trainer, launches = training_512_phase(torch)
         grad_check_512_phase(torch)
+        bf16_attention_grad_phase(torch)
         train_timing_512_phase(torch, trainer)
         del trainer
         serving_512 = serving_512_phase(torch)
@@ -1279,10 +1404,11 @@ def main():
         traceback.print_exc()
         return 1
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, routes) in KERNELS.items():
         entry = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "route_by_dtype": routes,
+            "source": source, "replaces": replaces,
+            "launches": launches[name],
             "max_abs_err": errs[name]["max_abs_err"],
             "max_rel_err": errs[name]["max_rel_err"],
             **timings[name],

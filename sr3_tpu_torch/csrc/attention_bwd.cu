@@ -1,40 +1,68 @@
-// K5 / K6: flash-attention backward, non-causal, float32 throughout.
+// K5 / K6: flash-attention backward, non-causal.
 //
 // K5 replaces sr3_tpu/ops/attention.py:163 `_flash_bwd_dkv_kernel` (the
 // first pallas_call of `attention_flash_bwd`, :254): one block owns a tile
-// of 16 keys, streams 16-row tiles of Q and dO, rebuilds the probabilities
+// of keys, streams tiles of Q and dO, rebuilds the probabilities
 // P = exp(q k^T * scale - lse) from the forward's logsumexp, and accumulates
 // dV += P^T dO and dK += dS^T Q with dS = P (dO v^T - dsum) * scale.
 // K6 replaces `_flash_bwd_dq_kernel` (:203, the pallas_call at :273): one
 // block owns a tile of 16 queries (Q, dO, lse, dsum), streams K and V tiles
 // and accumulates dQ += dS K. Neither kernel ever holds the (S x S) matrix:
-// each 16 x 16 tile of P and dS lives in shared memory for one step, so the
-// same code runs at any length; offsets are size_t and the grid is
-// (ceil(S / 16), BH).
+// each tile of P and dS lives for one step, so the same code runs at any
+// length; offsets are size_t. Each block writes its own rows of dK, dV or
+// dQ in float32, with no atomics: the same results on every run.
 //
 // On the 16->128 training path the shapes are (BH, S, D) = (B, 256, 512)
 // and (B, 64, 512), scale 1/sqrt(512), six calls of each per train step; on
 // the 64->512 path (2, 4096, 512) three times and (2, 1024, 512) four times
-// per step. At 4096 tokens and more the float32 FMA loops are the bound, far
-// above the bf16 tensor-core bound (8*BH*S^2*D operations for K5, 6*BH*S^2*D
-// for K6).
-// Bound on the card: like K4, shared-memory bandwidth of the float32 FMA
-// loops (two shared loads per FMA in the 16 x 16 score and dP dot products
-// over D) and, at batch 4, blocks in flight: K5 and K6 launch S/16 * BH
-// blocks, 64 at S=256 for 132 SMs. head_dim 512 is the hard part: the four
-// 16 x 512 float32 tiles (own Q or K, own dO or V, and the two streamed
-// ones) take 131 KB of dynamic shared memory, above the 48 KB default, so
-// each launch raises the kernel's cudaFuncAttributeMaxDynamicSharedMemorySize
-// first; rows are padded to D + 1 floats so the 16 rows a warp reads in the
-// dot products fall in 16 banks. The accumulators stay in registers: each
-// thread owns row r = tid / 16 and d = tid % 16 + 16 j of its outputs (32
-// floats for dQ; 64 for dK and dV).
+// per step. Bound on the card: operations, 8*BH*S^2*D for K5 (four
+// products) and 6*BH*S^2*D for K6; at (2, 4096, 512) K5's 137 GFLOP take
+// 0.139 ms on the bf16 tensor cores.
 //
-// Tolerance against the plain version (sr3_tpu_torch/ops/attention.py
-// `attention_bwd_plain`, float32 einsums, TF32 off): 1e-4 of max|plain| with
-// float32 and bfloat16 q, k, v alike -- both sides widen the same inputs to
-// float32 and keep P, dS and the accumulators in float32; only the order of
-// the float32 sums differs.
+// Float32 route (K5 in float32; K6 in both dtypes): float32 FMAs. Each
+// block streams 16-row tiles; the four 16 x 512 float32 tiles (own Q or K,
+// own dO or V, and the two streamed ones) take 131 KB of dynamic shared
+// memory, rows padded to D + 1 floats so the 16 rows a warp reads in the
+// dot products fall in 16 banks; each thread owns row r = tid / 16 and
+// d = tid % 16 + 16 j of its outputs (32 floats for dQ; 64 for dK and dV);
+// the grid is (ceil(S / 16), BH). Bound in practice by the shared-memory
+// loads of the FMA loops (two per FMA). Tolerance against the plain version
+// (`attention_bwd_plain`, float32 einsums, TF32 off): 1e-4 of max|plain| --
+// both sides widen the same inputs to float32 and keep P, dS and the
+// accumulators in float32; only the order of the float32 sums differs.
+//
+// K5's bfloat16 route: the tensor cores (mma.sync m16n8k16, bf16 ->
+// float32). A block of 8 warps owns 32 keys; its K and V tiles stay in
+// shared memory as bf16, and 32-query tiles of Q and dO stream through a
+// two-stage ring filled with 16-byte cp.async copies (the next tile's copy
+// overlaps this tile's products; one __syncthreads per tile); lse and dsum
+// of a thread's 8 query columns come straight from global memory. dO
+// arrives in bf16: the wrapper rounds the float32 output gradient once for
+// K5 (K6 keeps the float32 one). Staged rows are padded to D + 8 bf16, so
+// ldmatrix reads are free of bank conflicts.
+//   Products: S^T = K Q^T and dP^T = V dO^T (16 keys x 32 queries per warp),
+// then P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - dsum) * scale in
+// float32 registers; P^T and dS^T are rounded to bf16 and used directly as
+// the A operands (the m16n8 C layout is the m16n8k16 A layout) of
+// dV += P^T dO and dK += dS^T Q, whose B fragments come from ldmatrix.trans
+// of the same dO and Q tiles.
+//   Register budget: dK and dV for 16 keys x 512 columns would be 512
+// registers a thread in one warp, so the accumulator columns are split: warp
+// w owns key group w / 4 (16 keys) and the w % 4-th quarter of the 8-column
+// tiles of both dK and dV (16 keys x 128 columns each at D = 512: 128
+// registers). S^T and dP^T are split-d partial products: each of the four
+// warps of a key group multiplies its quarter of D, and the partials are
+// summed through shared memory (2 KB per warp, used first for S^T then for
+// dP^T, with named barriers of the group's 128 threads), in the same order
+// in every warp, so the four hold identical P^T and dS^T.
+//   Shared memory at D = 512: K and V 2 x 32 x 520 bf16 (66,560 B) + the
+// ring 2 x (Q, dO) x 32 x 520 bf16 (133,120 B) + partials 8 x 2 KB =
+// 216,064 B: one block of 256 threads per SM, (S / 32) * BH blocks (256 at
+// (2, 4096, 512)).
+//   Tolerance against the plain version: dK and dV within 2e-2 of
+// max|plain| -- dO, P and dS are rounded to bf16 (2^-9 relative) before
+// their products, as FlashAttention does; the plain version and the TPU
+// kernel (which widens every operand to float32) keep them in float32.
 #include <math.h>
 
 #include "common.cuh"
@@ -218,22 +246,16 @@ __global__ void __launch_bounds__(kThreads)
     if (j < nd) dqb[16 * j] = acc[j];
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 template <typename T>
 cudaError_t dkv_t(const void* q, const void* k, const void* v, const float* g,
                   const float* lse, const float* dsum, float* dk, float* dv,
                   int BH, int S, int D, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T>, smem);
+  static sr3::SmemLimit limit;
+  cudaError_t err = sr3::raise_smem_limit(
+      limit, (const void*)flash_bwd_dkv_kernel<T>, smem_bytes(kDMax));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kB - 1) / kB, BH);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<T><<<grid, kThreads, smem_bytes(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), g, lse, dsum, dk, dv, S, D, scale);
   return cudaGetLastError();
@@ -243,13 +265,213 @@ template <typename T>
 cudaError_t dq_t(const void* q, const void* k, const void* v, const float* g,
                  const float* lse, const float* dsum, float* dq, int BH, int S,
                  int D, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = prepare(flash_bwd_dq_kernel<T>, smem);
+  static sr3::SmemLimit limit;
+  cudaError_t err = sr3::raise_smem_limit(
+      limit, (const void*)flash_bwd_dq_kernel<T>, smem_bytes(kDMax));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kB - 1) / kB, BH);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T><<<grid, kThreads, smem_bytes(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), g, lse, dsum, dq, S, D, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------ K5, bfloat16 route
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMBK = 32;                 // keys per block: 2 groups of 16
+constexpr int kMBQ = 32;                 // queries per streamed tile
+constexpr int kMWarps = 8;               // 2 key groups x 4 column quarters
+constexpr int kMThreads = 32 * kMWarps;
+constexpr int kPad = 8;                  // bf16 of padding per staged row
+constexpr int kMaxNT = kDMax / 8 / 4;    // 8-column dK / dV tiles per warp
+constexpr int kPartial = 16 * kMBQ;      // floats of one warp's partial
+
+size_t dkv_mma_smem_bytes(int D) {
+  const size_t ld = D + kPad;
+  return sizeof(bf16) * (2 * kMBK + 2 * 2 * kMBQ) * ld +
+         sizeof(float) * kMWarps * kPartial;
+}
+
+// This warp's partial (16 x 32 floats) into shared memory, a named barrier
+// of the key group, then the group's four partials summed in warp order.
+__device__ __forceinline__ void group_sum(float (*x)[4], float* mine,
+                                          const float* group, int bar) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) mine[32 * i] = x[i / 4][i % 4];
+  sr3::bar_sync(bar, 128);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    x[i / 4][i % 4] = group[32 * i] + group[kPartial + 32 * i] +
+                      group[2 * kPartial + 32 * i] +
+                      group[3 * kPartial + 32 * i];
+}
+
+__global__ void __launch_bounds__(kMThreads, 1)
+    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ g,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dsum,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int S, int D, float scale) {
+  extern __shared__ uint4 mma_smem[];
+  const int ld = D + kPad;
+  bf16* k_s = reinterpret_cast<bf16*>(mma_smem);  // [kMBK][ld]
+  bf16* v_s = k_s + kMBK * ld;                    // [kMBK][ld]
+  bf16* ring = v_s + kMBK * ld;                   // [2][Q, dO][kMBQ][ld]
+  float* part = reinterpret_cast<float*>(ring + 2 * 2 * kMBQ * ld);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int kg = warp / 4, qt = warp % 4;  // key group, column quarter
+  const int gid = lane / 4, tig = lane % 4;
+  const int bh = blockIdx.y, k0 = blockIdx.x * kMBK;
+  const size_t base = (size_t)bh * S * D;
+  const bf16* qb = q + base;
+  const bf16* gb = g + base;
+  const float* lb = lse + (size_t)bh * S;
+  const float* db = dsum + (size_t)bh * S;
+  // this warp's k-steps of S^T, dP^T (over D) and 8-column dK / dV tiles
+  const int nks = D / 16, ks0 = qt * nks / 4, ks1 = (qt + 1) * nks / 4;
+  const int nnt = D / 8, nt0 = qt * nnt / 4, nt1 = (qt + 1) * nnt / 4;
+  const int ntiles = (S + kMBQ - 1) / kMBQ;
+
+  sr3::stage_rows<kMBK, kMThreads>(k_s, k + base, k0, S, D, ld);
+  sr3::stage_rows<kMBK, kMThreads>(v_s, v + base, k0, S, D, ld);
+  sr3::stage_rows<kMBQ, kMThreads>(ring, qb, 0, S, D, ld);
+  sr3::stage_rows<kMBQ, kMThreads>(ring + kMBQ * ld, gb, 0, S, D, ld);
+  sr3::cp_async_commit();
+
+  float acc_k[kMaxNT][4], acc_v[kMaxNT][4];
+#pragma unroll
+  for (int i = 0; i < kMaxNT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+
+  // ldmatrix row addresses: A (16 keys x 16 d), B (2 x 8 queries x 16 d)
+  const int a_off = (16 * kg + lane % 16) * ld + 8 * (lane / 16);
+  const int b_off = ((lane % 8) + 8 * (lane / 16)) * ld + 8 * ((lane / 8) % 2);
+  float* mine = part + warp * kPartial + lane;
+  const float* group = part + 4 * kg * kPartial + lane;
+  const int key0 = k0 + 16 * kg + gid;  // keys of C rows gid, gid + 8
+
+  for (int t = 0; t < ntiles; ++t) {
+    sr3::cp_async_wait<0>();
+    __syncthreads();  // tile t landed for all; tile t - 1's stage is free
+    if (t + 1 < ntiles) {
+      bf16* next = ring + ((t + 1) % 2) * 2 * kMBQ * ld;
+      const int q1 = (t + 1) * kMBQ;
+      sr3::stage_rows<kMBQ, kMThreads>(next, qb, q1, S, D, ld);
+      sr3::stage_rows<kMBQ, kMThreads>(next + kMBQ * ld, gb, q1, S, D, ld);
+      sr3::cp_async_commit();
+    }
+    const bf16* q_s = ring + (t % 2) * 2 * kMBQ * ld;
+    const bf16* g_s = q_s + kMBQ * ld;
+    const int qcol = t * kMBQ + 2 * tig;  // query of C column 2 * tig
+
+    // lse and dsum of this thread's query columns 8 j + 2 tig + e
+    float lq[8], dsq[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int qi = qcol + 8 * (c / 2) + c % 2;
+      lq[c] = qi < S ? lb[qi] : 0.f;
+      dsq[c] = qi < S ? db[qi] : 0.f;
+    }
+
+    // this warp's quarter-D partials of S^T and dP^T (16 keys x 32 queries)
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll 2
+    for (int ks = ks0; ks < ks1; ++ks) {
+      uint32_t ak[4], av[4], b[4];
+      sr3::ldmatrix_x4(ak, k_s + a_off + 16 * ks);
+      sr3::ldmatrix_x4(av, v_s + a_off + 16 * ks);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        sr3::ldmatrix_x4(b, q_s + 16 * jp * ld + b_off + 16 * ks);
+        sr3::mma_bf16(st[2 * jp], ak, b[0], b[1]);
+        sr3::mma_bf16(st[2 * jp + 1], ak, b[2], b[3]);
+        sr3::ldmatrix_x4(b, g_s + 16 * jp * ld + b_off + 16 * ks);
+        sr3::mma_bf16(dpt[2 * jp], av, b[0], b[1]);
+        sr3::mma_bf16(dpt[2 * jp + 1], av, b[2], b[3]);
+      }
+    }
+    group_sum(st, mine, group, 1 + kg);
+    sr3::bar_sync(1 + kg, 128);  // the group has read the S^T partials
+    group_sum(dpt, mine, group, 1 + kg);
+
+    // P^T and dS^T in float32; masked keys and queries give 0
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int j = i / 4, e = i % 4, c = 2 * j + e % 2;
+      const bool ok = key0 + 8 * (e / 2) < S && qcol + 8 * j + e % 2 < S;
+      const float p = ok ? expf(st[j][e] * scale - lq[c]) : 0.f;
+      st[j][e] = p;
+      dpt[j][e] = p * (dpt[j][e] - dsq[c]) * scale;
+    }
+    uint32_t pa[2][4], da[2][4];  // queries 0-15, 16-31
+    sr3::c_to_a(pa[0], st[0], st[1]);
+    sr3::c_to_a(pa[1], st[2], st[3]);
+    sr3::c_to_a(da[0], dpt[0], dpt[1]);
+    sr3::c_to_a(da[1], dpt[2], dpt[3]);
+
+    // dV += P^T dO and dK += dS^T Q over this warp's columns
+#pragma unroll
+    for (int i = 0; i < kMaxNT; ++i) {
+      if (nt0 + i < nt1) {
+        const int col = 8 * (nt0 + i);
+        uint32_t b[4];
+        sr3::ldmatrix_x4_trans(b, g_s + lane * ld + col);
+        sr3::mma_bf16(acc_v[i], pa[0], b[0], b[1]);
+        sr3::mma_bf16(acc_v[i], pa[1], b[2], b[3]);
+        sr3::ldmatrix_x4_trans(b, q_s + lane * ld + col);
+        sr3::mma_bf16(acc_k[i], da[0], b[0], b[1]);
+        sr3::mma_bf16(acc_k[i], da[1], b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= S) continue;
+    const size_t row = base + (size_t)key * D + 2 * tig;
+#pragma unroll
+    for (int i = 0; i < kMaxNT; ++i) {
+      if (nt0 + i < nt1) {
+        const size_t at = row + 8 * (nt0 + i);
+        *reinterpret_cast<float2*>(dk + at) =
+            make_float2(acc_k[i][2 * r], acc_k[i][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + at) =
+            make_float2(acc_v[i][2 * r], acc_v[i][2 * r + 1]);
+      }
+    }
+  }
+}
+
+cudaError_t dkv_mma(const void* q, const void* k, const void* v,
+                    const void* g, const float* lse, const float* dsum,
+                    float* dk, float* dv, int BH, int S, int D, float scale,
+                    cudaStream_t stream) {
+  // 16-byte cp.async copies: every row starts 16-byte aligned (D % 16 == 0)
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g)) % 16)
+    return cudaErrorInvalidValue;
+  static sr3::SmemLimit limit;
+  cudaError_t err = sr3::raise_smem_limit(
+      limit, (const void*)flash_bwd_dkv_mma_kernel, dkv_mma_smem_bytes(kDMax));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kMBK - 1) / kMBK, BH);
+  flash_bwd_dkv_mma_kernel<<<grid, kMThreads, dkv_mma_smem_bytes(D),
+                             stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, dsum, dk,
+      dv, S, D, scale);
   return cudaGetLastError();
 }
 
@@ -260,11 +482,14 @@ bool bad_shape(int BH, int S, int D) {
 }  // namespace
 
 // K5: dk, dv of softmax(q k^T * scale) v. q, k, v: (BH, S, D) of dtype; g
-// (= dO), dk, dv: (BH, S, D) float32; lse (the forward's logsumexp of q k^T
-// * scale) and dsum (= rowsum(dO * O)): (BH, S) float32; all contiguous. D
-// must be a multiple of 16 and at most 512. Returns the CUDA error code.
+// (= dO): (BH, S, D) of dtype too (float32 route: float32; bfloat16 route:
+// the output gradient rounded to bf16); dk, dv: (BH, S, D) float32; lse (the
+// forward's logsumexp of q k^T * scale) and dsum (= rowsum(dO * O), from the
+// float32 dO): (BH, S) float32; all contiguous, bf16 operands 16-byte
+// aligned. D must be a multiple of 16 and at most 512. Returns the CUDA
+// error code.
 extern "C" int sr3_flash_attention_bwd_dkv(const void* q, const void* k,
-                                           const void* v, const float* g,
+                                           const void* v, const void* g,
                                            const float* lse, const float* dsum,
                                            float* dk, float* dv, int BH, int S,
                                            int D, float scale, int dtype,
@@ -272,11 +497,10 @@ extern "C" int sr3_flash_attention_bwd_dkv(const void* q, const void* k,
   if (bad_shape(BH, S, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == sr3::kF32)
-    return (int)dkv_t<float>(q, k, v, g, lse, dsum, dk, dv, BH, S, D, scale,
-                             st);
+    return (int)dkv_t<float>(q, k, v, static_cast<const float*>(g), lse, dsum,
+                             dk, dv, BH, S, D, scale, st);
   if (dtype == sr3::kBF16)
-    return (int)dkv_t<__nv_bfloat16>(q, k, v, g, lse, dsum, dk, dv, BH, S, D,
-                                     scale, st);
+    return (int)dkv_mma(q, k, v, g, lse, dsum, dk, dv, BH, S, D, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -26,8 +26,9 @@
 //     float32, while bfloat16 stages whole 16-channel chunks with 16-byte
 //     loads and takes only C_in % 16 == 0.
 //   * bfloat16 runs on the tensor cores (mma.sync m16n8k16, float32
-//     accumulate); float32 runs on float32 FMAs, since TF32 tensor cores
-//     would keep only ~3 decimal digits. wgmma + TMA pipelining come later.
+//     accumulate; the helpers live in common.cuh, shared with K4 and K5);
+//     float32 runs on float32 FMAs, since TF32 tensor cores would keep only
+//     ~3 decimal digits. wgmma + TMA pipelining come later.
 //
 // Tolerance against the plain version (sr3_tpu_torch/ops/conv_fused.py
 // `gn_silu_conv3x3_plain`, GroupNorm then F.conv2d with TF32 off): 1e-4 of
@@ -151,19 +152,8 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kMThreads = 128;
 constexpr int kMStride = kCK + 8;  // bf16 per staged pixel / (tap, co) row
 constexpr int kHalo = (kTH + 2) * (kTW + 2);
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using sr3::ld_pair;
+using sr3::mma_bf16;
 
 // Staging of one 16-channel chunk (C_in % 16 == 0, as at every shape of the
 // model; the entry point refuses other C_in): 16-byte loads, issued for

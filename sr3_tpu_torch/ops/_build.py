@@ -4,9 +4,10 @@ The kernels are CUDA C++ for Hopper (``sm_90a``) with a plain C interface.
 At first use each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library, keyed
 on a hash of the sources and flags, under ``sr3_tpu_torch/_build/`` (ignored
-by git), and loaded with ctypes. Nothing is built when a module is imported,
-and CPU tensors never reach this module: the op wrappers dispatch CPU inputs
-to their plain PyTorch versions.
+by git), and loaded with ctypes; the compilers' output (ptxas' registers and
+spills of every kernel) is kept beside it as ``<library>.log``. Nothing is
+built when a module is imported, and CPU tensors never reach this module:
+the op wrappers dispatch CPU inputs to their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-lineinfo")
+              "-lineinfo", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,7 +50,8 @@ _SIGNATURES = {
     "sr3_gn_silu_conv3x3": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
     # q, k, v, o, lse, BH, S, D, scale, dtype, stream
     "sr3_flash_attention_fwd": ([_P] * 5 + [_I] * 3 + [_F, _I, _P], _I),
-    # q, k, v, g, lse, dsum, dk, dv, BH, S, D, scale, dtype, stream
+    # q, k, v, g (of dtype), lse, dsum, dk, dv, BH, S, D, scale, dtype,
+    # stream
     "sr3_flash_attention_bwd_dkv": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
     # q, k, v, g, lse, dsum, dq, BH, S, D, scale, dtype, stream
     "sr3_flash_attention_bwd_dq": ([_P] * 7 + [_I] * 3 + [_F, _I, _P], _I),
@@ -134,6 +136,8 @@ def build():
             raise RuntimeError("nvcc failed linking the sr3_tpu_torch kernels:\n"
                                + " ".join(link) + "\n" + proc.stdout
                                + proc.stderr)
+        with open(out + ".log", "w") as f:  # ptxas: registers, spills
+            f.write("\n".join(logs))
         os.replace(lib, out)  # atomic: a concurrent loader never sees half
     return out
 

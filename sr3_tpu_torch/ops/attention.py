@@ -11,7 +11,10 @@ launch the kernels for CUDA tensors. ``attention`` is differentiable: under
 autograd it saves the logsumexp and its backward runs K5 then K6, as
 ``_flash_with_vjp`` does; without grad the forward skips the logsumexp.
 Layout (batch*heads, seq, head_dim); outputs are float32, as the TPU
-kernels'.
+kernels'. On CUDA the input dtype picks each kernel's route: float32 FMAs,
+or for bfloat16 K4's and K5's tensor-core route, which rounds P (K4) and
+dO, P and dS (K5) to bf16 before their products (within 2e-2 of max|plain|;
+the logsumexp within 1e-4; the csrc headers give the reasons).
 """
 
 from __future__ import annotations
@@ -117,16 +120,17 @@ def attention_bwd(q, k, v, g, lse, dsum, scale):
         return attention_bwd_plain(q, k, v, g, lse, dsum, scale)
     dq, dk, dv = (torch.empty((bh, seq, d), dtype=torch.float32,
                               device=q.device) for _ in range(3))
-    _bwd_kernel("sr3_flash_attention_bwd_dkv", dkv_counter, q, k, v, g, lse,
-                dsum, (dk, dv), scale)
+    # K5 takes dO in q's dtype: its bf16 route rounds it once here
+    _bwd_kernel("sr3_flash_attention_bwd_dkv", dkv_counter, q, k, v,
+                g.to(q.dtype), lse, dsum, (dk, dv), scale)
     _bwd_kernel("sr3_flash_attention_bwd_dq", dq_counter, q, k, v, g, lse,
                 dsum, (dq,), scale)
     return dq, dk, dv
 
 
 def _bwd_kernel(entry, count, q, k, v, g, lse, dsum, outs, scale):
-    """Launch one backward kernel (K5: outs (dk, dv); K6: outs (dq,)) on
-    checked operands."""
+    """Launch one backward kernel (K5: outs (dk, dv), g in q's dtype; K6:
+    outs (dq,), g float32) on checked operands."""
     bh, seq, d = q.shape
     err = getattr(_build.load_library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

@@ -8,12 +8,14 @@ imports it), run them with
 
 Tolerances, relative to max|plain|: float32 1e-4 for K1, K4, K5 and K6 and
 1e-5 for K2 and the statistics route (float32 sums in another order);
-bfloat16 2e-2 for K1, K2 and the route
-(the plain version rounds intermediate results to bf16, 2^-8 relative each,
-where a kernel rounds once) and 1e-4 for K4, K5 and K6 (both sides compute
-in float32 from the same inputs). The reasons are spelled out in each
-kernel's source header. The autograd Functions against autograd of the
-plain versions: float32 1e-4; bfloat16 2e-2 (each side rounds its input
+bfloat16 2e-2 for K1, K2 and the route (the plain version rounds
+intermediate results to bf16, 2^-8 relative each, where a kernel rounds
+once), 2e-2 for K4's output and K5's dk, dv (their tensor-core route rounds
+P, and dO, P, dS, to bf16 before the products), and 1e-4 for K4's
+logsumexp and K6 (both sides compute in float32 from the same inputs). The
+reasons are spelled out in each kernel's source header. The autograd
+Functions against autograd of the plain versions: float32 1e-4; bfloat16
+2e-2 (each side rounds its input
 gradients to bf16 once, and K2's hand backward differs from autograd's
 composition in where it rounds). K3's sums against float64 sums of the same
 inputs: s1 within 1e-5 of sum|x|, s2 within 1e-5 of s2.
@@ -27,8 +29,10 @@ from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
 
 pytestmark = pytest.mark.gpu
 CL = torch.channels_last
-TOL = {torch.float32: {"k1": 1e-4, "k2": 1e-5, "k4": 1e-4, "grad": 1e-4},
-       torch.bfloat16: {"k1": 2e-2, "k2": 2e-2, "k4": 1e-4, "grad": 2e-2}}
+TOL = {torch.float32: {"k1": 1e-4, "k2": 1e-5, "k4": 1e-4, "lse": 1e-4,
+                       "k5": 1e-4, "k6": 1e-4, "grad": 1e-4},
+       torch.bfloat16: {"k1": 2e-2, "k2": 2e-2, "k4": 2e-2, "lse": 1e-4,
+                        "k5": 2e-2, "k6": 1e-4, "grad": 2e-2}}
 
 
 @pytest.fixture
@@ -172,15 +176,15 @@ def test_k4_lse_k5_k6_match_plain(gen, dtype, bh, seq, d):
     o, lse = attention.attention_fwd(q, k, v, d ** -0.5)
     ref_o, ref_lse = attention.attention_fwd_plain(q, k, v, d ** -0.5)
     assert rel(o, ref_o) <= TOL[dtype]["k4"]
-    assert rel(lse, ref_lse) <= TOL[dtype]["k4"]
+    assert rel(lse, ref_lse) <= TOL[dtype]["lse"]
     dsum = (g * o).sum(-1)
     grads = attention.attention_bwd(q, k, v, g, lse, dsum, d ** -0.5)
     refs = attention.attention_bwd_plain(q, k, v, g, lse, dsum, d ** -0.5)
     assert (attention.counter.n, attention.dkv_counter.n,
             attention.dq_counter.n) == (n[0] + 1, n[1] + 1, n[2] + 1)
-    for out, ref in zip(grads, refs):
+    for out, ref, kernel in zip(grads, refs, ("k6", "k5", "k5")):
         assert out.dtype == torch.float32
-        assert rel(out, ref) <= TOL[dtype]["k4"]
+        assert rel(out, ref) <= TOL[dtype][kernel]
 
 
 def _function_case(gen, op, dtype):
