@@ -11,7 +11,10 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at every shape the SR3 16->128 sampling path gives it (batch
      2), in float32 and bfloat16 (each kernel's route by dtype: KERNELS),
-     error relative to max|plain| (TOL); K4's logsumexp and the backward
+     error relative to max|plain| (TOL); K1 also at every shape of the
+     64->512 UNet (batch 2; both shape lists checked against the models'
+     Blocks) and at two of its serving-batch shapes, each bf16 check
+     labelled with the tile it launched; K4's logsumexp and the backward
      kernels K5 / K6 at the training shapes and a ragged one; the autograd
      Functions of K1, K2 and K4 against autograd of their plain versions,
      every input gradient;
@@ -72,7 +75,11 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      (library_ms; the port never calls it), each as CUDA-event ms per call
      and as the profiler's device ms per call; and the least time the card
      could take (bound_ms: the larger of bytes over 3.35 TB/s and operations
-     over 989 TFLOP/s). The JSON line carries the first shape of each.
+     over 989 TFLOP/s). Beside K1, cuDNN's conv3x3 alone at its shape (not
+     the same function, so not library_ms). The JSON line carries the first
+     shape of each.
+After phase 17 the bf16 K1 tiles launched since phase 3 (the main paths and
+the timing) must all be tiles that phase 3 checked.
 
 Then one JSON line with every kernel's route, source, the TPU kernel it
 replaces, launches in phase 12 (and on the other paths), max error and
@@ -94,11 +101,12 @@ BATCH_CHECK = 2
 BATCH_TIME = 8
 TRAIN_STEPS = 6
 TIME_STEPS = 12
-# bf16: K4's o and K5's dk, dv round P (and dO, dS) to bf16 before their
-# products on the tensor-core route (attention.cu, attention_bwd.cu
-# headers); K4's logsumexp ("flash_attention_lse") and K6 compute in float32
-# from the same inputs as the plain versions; the autograd Functions: each
-# side rounds its input gradients to bf16 once
+# bf16: K4's o, K5's dk, dv and K6's dq round P (K4), dO, P, dS (K5) and
+# dO, dS (K6) to bf16 before their products on the tensor-core routes
+# (attention.cu, attention_bwd.cu headers), where the plain versions keep
+# them in float32; K4's logsumexp ("flash_attention_lse") computes in
+# float32 from the same inputs as the plain version; the autograd
+# Functions: each side rounds its input gradients to bf16 once
 TOL = {"float32": {"gn_silu_conv3x3": 1e-4, "group_norm": 1e-5,
                    "flash_attention_fwd": 1e-4, "flash_attention_lse": 1e-4,
                    "flash_attention_bwd_dkv": 1e-4,
@@ -106,7 +114,7 @@ TOL = {"float32": {"gn_silu_conv3x3": 1e-4, "group_norm": 1e-5,
        "bfloat16": {"gn_silu_conv3x3": 2e-2, "group_norm": 2e-2,
                     "flash_attention_fwd": 2e-2, "flash_attention_lse": 1e-4,
                     "flash_attention_bwd_dkv": 2e-2,
-                    "flash_attention_bwd_dq": 1e-4, "function": 2e-2}}
+                    "flash_attention_bwd_dq": 2e-2, "function": 2e-2}}
 # float32 loss and gradients of the full-width UNet, kernels vs plain ops
 GRAD_TOL = 1e-3
 FORWARD_TOL = 1e-3
@@ -114,13 +122,14 @@ FORWARD_TOL = 1e-3
 # layers; measured ~1.2e-2 of max|out| on an H100
 FORWARD_TOL_BF16 = 5e-2
 
-# (Cin, Cout, H=W) of every K1 call of the 16->128 UNet
+# (Cin, Cout, H=W) of every K1 call of the 16->128 UNet, in the order of
+# the forward; phase 3 checks the list against the model's Blocks (k1_sites)
 K1_SHAPES = [
-    (64, 64, 128), (192, 64, 128), (128, 64, 128), (64, 3, 128),
-    (64, 128, 64), (128, 128, 64), (384, 128, 64), (256, 128, 64),
-    (128, 256, 32), (256, 256, 32), (768, 256, 32), (512, 256, 32),
-    (256, 512, 16), (512, 512, 16), (1024, 512, 16),
-    (512, 512, 8), (1024, 512, 8),
+    (64, 64, 128), (64, 128, 64), (128, 128, 64), (128, 256, 32),
+    (256, 256, 32), (256, 512, 16), (512, 512, 16), (512, 512, 8),
+    (1024, 512, 8), (1024, 512, 16), (768, 512, 16), (768, 256, 32),
+    (512, 256, 32), (384, 256, 32), (384, 128, 64), (256, 128, 64),
+    (192, 128, 64), (192, 64, 128), (128, 64, 128), (64, 3, 128),
 ]
 K2_SHAPES = [(512, 16), (512, 8)]          # (C, H=W), swish off
 K4_SHAPES = [(256, 512), (64, 512)]        # (seq, head_dim)
@@ -132,6 +141,20 @@ BWD_SHAPES = [(4, 256, 512), (4, 64, 512), (3, 100, 64)]
 # parameters, 16 norm groups, attention at 64x64 and 32x32, remat, dropout
 # 0.2), batch 2, and its val batch 8
 CONFIG_512 = os.path.join(ROOT, "configs", "sr_sr3_64_512_attn.json")
+# (Cin, Cout, H=W) of every K1 call of the 64->512 UNet (checked as
+# K1_SHAPES is); phase 3 runs them at the train batch, in float32 and bf16
+K1_SHAPES_512 = [
+    (64, 64, 512), (64, 128, 256), (128, 128, 256), (128, 256, 128),
+    (256, 256, 128), (256, 512, 64), (512, 512, 64), (512, 512, 32),
+    (1024, 512, 32), (1024, 512, 64), (768, 512, 64), (768, 256, 128),
+    (384, 256, 128), (384, 128, 256), (192, 128, 256), (192, 64, 512),
+    (128, 64, 512), (64, 3, 512),
+]
+BATCH_CHECK_512 = 2
+# (B, Cin, Cout, H=W): K1 calls of the batch-8 512^2 serving step on which
+# the bf16 route takes 128 output channels a block, over 4 and 2 blocks of
+# them; phase 3 checks these too
+K1_SERVING_512 = [(8, 512, 512, 64), (8, 128, 256, 128)]
 TRAIN_STEPS_512 = 3
 TIME_STEPS_512 = 10
 PROFILE_STEPS_512 = 2
@@ -152,10 +175,13 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # name: (source, the TPU kernel it replaces, route by input dtype)
 FMA, MMA = "float32 FMA", "bf16 mma.sync tensor cores, float32 accumulate"
+WGMMA = ("bf16 wgmma tensor cores (A by ldmatrix from registers, B by "
+         "shared-memory descriptor), float32 accumulate, cp.async weight "
+         "ring and halo")
 KERNELS = {
     "gn_silu_conv3x3": ("sr3_tpu_torch/csrc/conv_fused.cu",
                         "sr3_tpu/ops/conv_fused.py:117",
-                        {"float32": FMA, "bfloat16": MMA}),
+                        {"float32": FMA, "bfloat16": WGMMA}),
     "group_norm": ("sr3_tpu_torch/csrc/groupnorm.cu",
                    "sr3_tpu/ops/groupnorm.py:237",
                    {"float32": FMA, "bfloat16": FMA}),
@@ -168,7 +194,8 @@ KERNELS = {
                                  "bfloat16": MMA + ", cp.async"}),
     "flash_attention_bwd_dq": ("sr3_tpu_torch/csrc/attention_bwd.cu",
                                "sr3_tpu/ops/attention.py:203",
-                               {"float32": FMA, "bfloat16": FMA}),
+                               {"float32": FMA,
+                                "bfloat16": MMA + ", cp.async"}),
     "gn_stats": ("sr3_tpu_torch/csrc/gn_stats.cu",
                  "sr3_tpu/ops/groupnorm.py:66",
                  {"float32": FMA, "bfloat16": FMA}),
@@ -285,8 +312,9 @@ def print_ptxas(log):
 
 
 def _kernel_name(mangled):
-    """`flash_fwd_kernel<float>` from a mangled kernel name: the
-    length-prefixed identifier that ends in `_kernel`, and its dtype."""
+    """`flash_fwd_kernel<float>` or `..._wgmma_kernel<16,1,128>` from a
+    mangled kernel name: the length-prefixed identifier that ends in
+    `_kernel`, and its dtype or integer template arguments."""
     import re
 
     for run in re.finditer(r"\d+", mangled):
@@ -295,6 +323,10 @@ def _kernel_name(mangled):
             ident = mangled[at:at + n]
             if len(ident) == n and ident.endswith("_kernel"):
                 rest = mangled[at + n:]
+                ints = re.match(r"I((?:Li\d+E)+)E", rest)
+                if ints:
+                    args = re.findall(r"Li(\d+)E", ints.group(1))
+                    return ident + "<" + ",".join(args) + ">"
                 return ident + ("<float>" if rest.startswith("If") else
                                 "<bf16>" if rest.startswith("I13__nv_bf")
                                 else "")
@@ -332,17 +364,32 @@ def kernel_phase(torch, errs):
     def record(kernel, dtype, label, out, ref):
         check(torch, errs, failures, kernel, dtype, label, out, ref)
 
+    for config, shapes in ((CONFIG, K1_SHAPES), (CONFIG_512, K1_SHAPES_512)):
+        sites = k1_sites(torch, config)
+        if sorted(set(sites)) != sorted(shapes):
+            failures.append(f"K1 shapes of {os.path.basename(config)}: the "
+                            f"model's {sorted(set(sites))}")
+    k1_cases = ([(BATCH_CHECK, *s) for s in K1_SHAPES]
+                + [(BATCH_CHECK_512, *s) for s in K1_SHAPES_512]
+                + K1_SERVING_512)
+    checked_tiles = set()
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for cin, cout, hw in K1_SHAPES:
+        for b, cin, cout, hw in k1_cases:
             for film in ((False,) if cout == 3 else (False, True)):
-                args, kw = _k1_inputs(torch, g, BATCH_CHECK, cin, cout, hw,
-                                      dtype, film)
-                label = (f"{BATCH_CHECK}x{cin}x{hw}x{hw}->{cout}"
+                args, kw = _k1_inputs(torch, g, b, cin, cout, hw, dtype, film)
+                label = (f"{b}x{cin}x{hw}x{hw}->{cout}"
                          + (" +film+residual" if film else ""))
-                record("gn_silu_conv3x3", dn, label,
-                       conv_fused.gn_silu_conv3x3(*args, **kw),
+                conv_fused.bf16_tile_launches(reset=True)
+                out = conv_fused.gn_silu_conv3x3(*args, **kw)
+                tiles = [t for t, n in conv_fused.bf16_tile_launches().items()
+                         if n]
+                if dtype == torch.bfloat16:
+                    label += " tile " + ",".join(tiles)
+                    checked_tiles.update(tiles)
+                record("gn_silu_conv3x3", dn, label, out,
                        conv_fused.gn_silu_conv3x3_plain(*args, **kw))
+                del args, kw, out
         for c, hw in K2_SHAPES:
             x = torch.randn(BATCH_CHECK, c, hw, hw, device="cuda", generator=g)
             x = (3 * x + 1).to(dtype).contiguous(memory_format=torch.channels_last)
@@ -384,6 +431,45 @@ def kernel_phase(torch, errs):
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
+    conv_fused.bf16_tile_launches(reset=True)
+    return checked_tiles
+
+
+@phase("K1 tiles")
+def k1_tile_phase(checked):
+    """Fail if a bf16 K1 tile launched since phase 3 went unchecked."""
+    from sr3_tpu_torch.ops import conv_fused
+
+    taken = {t: n for t, n in conv_fused.bf16_tile_launches().items() if n}
+    print(f"  bf16 K1 launches by tile since phase 3: {taken}; checked in "
+          f"phase 3: {sorted(checked)}", flush=True)
+    if not taken or set(taken) - checked:
+        raise AssertionError(f"bf16 K1 tiles launched but not checked: "
+                             f"{sorted(set(taken) - checked)}")
+
+
+def k1_sites(torch, config):
+    """(Cin, Cout, H) of each K1 call of one UNet forward of ``config``'s
+    model, in order, read off its Blocks (a meta-device copy): both Blocks
+    of every ResnetBlock, then final_conv. In training the dropout Blocks
+    run K2 and a plain conv instead."""
+    from sr3_tpu_torch.models.networks import define_G
+    from sr3_tpu_torch.models.unet import Downsample, Upsample
+
+    net = define_G(_load_opt(config=config), device="meta").denoise_fn
+    res, out = net.image_size, []
+
+    def conv(block):
+        return (*block.block[3].weight.shape[1::-1], res)
+
+    for layer in (*net.downs[1:], *net.mid, *net.ups):
+        if isinstance(layer, Downsample):
+            res //= 2
+        elif isinstance(layer, Upsample):
+            res *= 2
+        else:
+            out += [conv(layer.res_block.block1), conv(layer.res_block.block2)]
+    return out + [conv(net.final_conv)]
 
 
 def _function_cases(torch, g, dtype):
@@ -739,7 +825,7 @@ def train_timing_phase(torch, trainer):
         scale = d ** -0.5
         o, lse = attention.attention_fwd(q, k, v, scale)
         dsum = (gr * o).sum(-1)
-        gr16 = gr.to(torch.bfloat16)  # K5's dO, as attention_bwd rounds it
+        gr16 = gr.to(torch.bfloat16)  # K5's and K6's dO, as attention_bwd
         out = [torch.empty_like(gr) for _ in range(3)]
         plain_bwd = _time_ms(torch, lambda: attention.attention_bwd_plain(
             q, k, v, gr, lse, dsum, scale))
@@ -753,7 +839,7 @@ def train_timing_phase(torch, trainer):
                 v, gr16, lse, dsum, out[1:], scale), plain_bwd),
             "flash_attention_bwd_dq": (lambda: attention._bwd_kernel(
                 "sr3_flash_attention_bwd_dq", attention.dq_counter, q, k, v,
-                gr, lse, dsum, out[:1], scale), plain_bwd),
+                gr16, lse, dsum, out[:1], scale), plain_bwd),
         }
         for name, (fn, plain_ms) in pairs.items():
             kms = _time_ms(torch, fn)
@@ -1292,6 +1378,18 @@ def kernel_timing_512_phase(torch):
           lambda: conv_fused.gn_silu_conv3x3(*args, **kw),
           lambda: conv_fused.gn_silu_conv3x3_plain(*args, **kw), None,
           2 * b * hw * 64 * 64 * 9, 2 * (3 * b * hw * 64 + 64 * 64 * 9))
+    # cuDNN's conv3x3 alone on the same map and weight: not the same
+    # function (no GroupNorm, SiLU, FiLM or residual), so not library_ms
+    x, w, cb = args[0], args[3], args[4].to(dt)
+    conv = lambda: F.conv2d(x, w, cb, padding=1)
+    alone = {"cudnn_conv_alone_ms": _time_ms(torch, conv, n=5),
+             "cudnn_conv_alone_device_ms": _device_ms(torch, conv)}
+    out["gn_silu_conv3x3"].update(alone)
+    print(f"  cuDNN F.conv2d alone (the conv only, bf16 channels_last) "
+          f"{b}x64x512x512->64, ms (events / device): "
+          f"{alone['cudnn_conv_alone_ms']:.4f} / "
+          f"{alone['cudnn_conv_alone_device_ms']:.4f}", flush=True)
+    del args, kw, x, w
     x = torch.randn(b, 512, 64, 64, device="cuda", generator=g)
     x = x.to(dt).contiguous(memory_format=cl)
     gw = 1 + 0.2 * torch.randn(512, device="cuda", generator=g)
@@ -1330,7 +1428,7 @@ def _attention_entries(torch, g, entry, bh, seq, d):
     scale = d ** -0.5
     o, lse = attention.attention_fwd(q, k, v, scale)
     dsum = (gr * o).sum(-1)
-    gr16 = gr.to(dt)  # K5's dO, as attention_bwd rounds it
+    gr16 = gr.to(dt)  # K5's and K6's dO, as attention_bwd rounds it
     outs = [torch.empty_like(gr) for _ in range(3)]
     shape = f"{bh}x{seq}x{d}"
     mm = 2 * bh * seq * seq * d  # one (seq x seq x d) product
@@ -1363,9 +1461,9 @@ def _attention_entries(torch, g, entry, bh, seq, d):
           + 2 * 4 * q.numel())
     entry("flash_attention_bwd_dq", shape,
           lambda: attention._bwd_kernel(
-              "sr3_flash_attention_bwd_dq", attention.dq_counter, q, k, v, gr,
-              lse, dsum, outs[:1], scale), plain_bwd, sdpa_bwd,
-          3 * mm, qkv_bytes + 4 * (gr.numel() + 2 * bh * seq)
+              "sr3_flash_attention_bwd_dq", attention.dq_counter, q, k, v,
+              gr16, lse, dsum, outs[:1], scale), plain_bwd, sdpa_bwd,
+          3 * mm, qkv_bytes + 2 * gr16.numel() + 4 * 2 * bh * seq
           + 4 * q.numel())
 
 
@@ -1380,7 +1478,7 @@ def main():
         build_phase()
         errs = {}
         # the SR3 16->128 serving and training paths
-        kernel_phase(torch, errs)
+        checked_tiles = kernel_phase(torch, errs)
         trainer = model_phase(torch)
         serving = serving_phase(torch, trainer)
         times = timing_phase(torch, trainer)
@@ -1400,6 +1498,7 @@ def main():
         del trainer
         serving_512 = serving_512_phase(torch)
         timings = kernel_timing_512_phase(torch)
+        k1_tile_phase(checked_tiles)
     except Exception:  # report any phase's failure, print no result
         traceback.print_exc()
         return 1

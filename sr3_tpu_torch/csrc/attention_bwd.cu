@@ -6,7 +6,7 @@
 // P = exp(q k^T * scale - lse) from the forward's logsumexp, and accumulates
 // dV += P^T dO and dK += dS^T Q with dS = P (dO v^T - dsum) * scale.
 // K6 replaces `_flash_bwd_dq_kernel` (:203, the pallas_call at :273): one
-// block owns a tile of 16 queries (Q, dO, lse, dsum), streams K and V tiles
+// block owns a tile of queries (Q, dO, lse, dsum), streams K and V tiles
 // and accumulates dQ += dS K. Neither kernel ever holds the (S x S) matrix:
 // each tile of P and dS lives for one step, so the same code runs at any
 // length; offsets are size_t. Each block writes its own rows of dK, dV or
@@ -19,7 +19,7 @@
 // products) and 6*BH*S^2*D for K6; at (2, 4096, 512) K5's 137 GFLOP take
 // 0.139 ms on the bf16 tensor cores.
 //
-// Float32 route (K5 in float32; K6 in both dtypes): float32 FMAs. Each
+// Float32 route (K5 and K6 on float32 inputs): float32 FMAs. Each
 // block streams 16-row tiles; the four 16 x 512 float32 tiles (own Q or K,
 // own dO or V, and the two streamed ones) take 131 KB of dynamic shared
 // memory, rows padded to D + 1 floats so the 16 rows a warp reads in the
@@ -37,9 +37,9 @@
 // two-stage ring filled with 16-byte cp.async copies (the next tile's copy
 // overlaps this tile's products; one __syncthreads per tile); lse and dsum
 // of a thread's 8 query columns come straight from global memory. dO
-// arrives in bf16: the wrapper rounds the float32 output gradient once for
-// K5 (K6 keeps the float32 one). Staged rows are padded to D + 8 bf16, so
-// ldmatrix reads are free of bank conflicts.
+// arrives in bf16: the wrapper rounds the float32 output gradient once, for
+// K5 and K6 alike (dsum still comes from the float32 one). Staged rows are
+// padded to D + 8 bf16, so ldmatrix reads are free of bank conflicts.
 //   Products: S^T = K Q^T and dP^T = V dO^T (16 keys x 32 queries per warp),
 // then P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - dsum) * scale in
 // float32 registers; P^T and dS^T are rounded to bf16 and used directly as
@@ -63,6 +63,30 @@
 // max|plain| -- dO, P and dS are rounded to bf16 (2^-9 relative) before
 // their products, as FlashAttention does; the plain version and the TPU
 // kernel (which widens every operand to float32) keep them in float32.
+//
+// K6's bfloat16 route: K5's design with the roles of queries and keys
+// swapped (flash_bwd_dq_mma_kernel below). A block of 8 warps owns 32
+// queries, whose Q and dO rows stay in shared memory; 32-key tiles of K and
+// V stream through the same two-stage cp.async ring, one __syncthreads per
+// tile. S = Q K^T and dP = dO V^T are split-d partials summed by group_sum;
+// P = exp(S * scale - lse) and dS = P (dP - dsum) * scale in float32
+// registers (the scale applied after the product), dS rounded to bf16 as
+// the A operand of dQ += dS K, whose B fragments come from ldmatrix.trans of
+// the K tile. Three products per key tile against K5's four; the same
+// 216,064 B of shared memory at D = 512 (Q, dO 66,560 B, the K / V ring
+// 133,120 B, partials 16 KB); (S / 32) * BH blocks, so at (2, 1024, 512)
+// its 64 blocks leave half of the card's 132 SMs idle (a split over keys
+// would need a second reduction pass to stay free of atomics). Bound as
+// K5: 6*BH*S^2*D operations, 0.104 ms at (2, 4096, 512) on the tensor
+// cores; in practice the fragment loads from shared memory and the group
+// sums set the pace, as in K4 and K5.
+//   Tolerance: dQ within 2e-2 of max|plain| -- dO and dS are rounded to bf16
+// before their products, which neither the plain version nor the TPU kernel
+// does (1e-4 while K6 computed in float32; the float32 route stays at 1e-4).
+//
+// ptxas (sm_90a, CUDA 12.8, as chip_smoke.py's build phase prints it):
+// flash_bwd_dkv_mma_kernel 248 registers, flash_bwd_dq_mma_kernel 195, the
+// float32 kernels 98 (dK/dV) and 74 (dQ); no spills.
 #include <math.h>
 
 #include "common.cuh"
@@ -454,14 +478,170 @@ __global__ void __launch_bounds__(kMThreads, 1)
   }
 }
 
+// ------------------------------------------------------ K6, bfloat16 route
+//
+// The mirror of K5's design with the queries resident: a block of 8 warps
+// owns 32 queries, whose Q and dO rows stay in shared memory; 32-key tiles
+// of K and V stream through the two-stage cp.async ring. Warp w owns query
+// group w / 4 (16 queries) and the w % 4-th quarter of dQ's 8-column tiles
+// (16 x 128 float32 at D = 512: 64 registers a thread). S = Q K^T and
+// dP = dO V^T are split-d partials over the warp's quarter of D, summed by
+// group_sum as in K5; P and dS follow in float32 registers, and dS, rounded
+// to bf16, is the A operand of dQ += dS K, whose B fragments come from
+// ldmatrix.trans of the same K tile.
+constexpr int kQBQ = 32;  // queries per block: 2 groups of 16
+constexpr int kQBK = 32;  // keys per streamed tile
+
+size_t dq_mma_smem_bytes(int D) {
+  const size_t ld = D + kPad;
+  return sizeof(bf16) * (2 * kQBQ + 2 * 2 * kQBK) * ld +
+         sizeof(float) * kMWarps * kPartial;
+}
+
+__global__ void __launch_bounds__(kMThreads, 1)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ g,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dsum,
+                            float* __restrict__ dq, int S, int D,
+                            float scale) {
+  extern __shared__ uint4 mma_smem[];
+  const int ld = D + kPad;
+  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);  // [kQBQ][ld]
+  bf16* g_s = q_s + kQBQ * ld;                    // [kQBQ][ld] dO
+  bf16* ring = g_s + kQBQ * ld;                   // [2][K, V][kQBK][ld]
+  float* part = reinterpret_cast<float*>(ring + 2 * 2 * kQBK * ld);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int qg = warp / 4, qt = warp % 4;  // query group, column quarter
+  const int gid = lane / 4, tig = lane % 4;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kQBQ;
+  const size_t base = (size_t)bh * S * D;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+  // this warp's k-steps of S, dP (over D) and 8-column dQ tiles
+  const int nks = D / 16, ks0 = qt * nks / 4, ks1 = (qt + 1) * nks / 4;
+  const int nnt = D / 8, nt0 = qt * nnt / 4, nt1 = (qt + 1) * nnt / 4;
+  const int ntiles = (S + kQBK - 1) / kQBK;
+
+  sr3::stage_rows<kQBQ, kMThreads>(q_s, q + base, q0, S, D, ld);
+  sr3::stage_rows<kQBQ, kMThreads>(g_s, g + base, q0, S, D, ld);
+  sr3::stage_rows<kQBK, kMThreads>(ring, kb, 0, S, D, ld);
+  sr3::stage_rows<kQBK, kMThreads>(ring + kQBK * ld, vb, 0, S, D, ld);
+  sr3::cp_async_commit();
+
+  float acc[kMaxNT][4];
+#pragma unroll
+  for (int i = 0; i < kMaxNT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  // lse and dsum of this thread's query rows gid, gid + 8
+  const int query0 = q0 + 16 * qg + gid;
+  float lq[2], dsq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = query0 + 8 * r;
+    lq[r] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
+    dsq[r] = qi < S ? dsum[(size_t)bh * S + qi] : 0.f;
+  }
+
+  // ldmatrix row addresses: A (16 queries x 16 d), B (2 x 8 keys x 16 d)
+  const int a_off = (16 * qg + lane % 16) * ld + 8 * (lane / 16);
+  const int b_off = ((lane % 8) + 8 * (lane / 16)) * ld + 8 * ((lane / 8) % 2);
+  float* mine = part + warp * kPartial + lane;
+  const float* group = part + 4 * qg * kPartial + lane;
+
+  for (int t = 0; t < ntiles; ++t) {
+    sr3::cp_async_wait<0>();
+    __syncthreads();  // tile t landed for all; tile t - 1's stage is free
+    if (t + 1 < ntiles) {
+      bf16* next = ring + ((t + 1) % 2) * 2 * kQBK * ld;
+      const int k1 = (t + 1) * kQBK;
+      sr3::stage_rows<kQBK, kMThreads>(next, kb, k1, S, D, ld);
+      sr3::stage_rows<kQBK, kMThreads>(next + kQBK * ld, vb, k1, S, D, ld);
+      sr3::cp_async_commit();
+    }
+    const bf16* k_s = ring + (t % 2) * 2 * kQBK * ld;
+    const bf16* v_s = k_s + kQBK * ld;
+    const int kcol = t * kQBK + 2 * tig;  // key of C column 2 * tig
+
+    // this warp's quarter-D partials of S and dP (16 queries x 32 keys)
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+    for (int ks = ks0; ks < ks1; ++ks) {
+      uint32_t aq[4], ag[4], b[4];
+      sr3::ldmatrix_x4(aq, q_s + a_off + 16 * ks);
+      sr3::ldmatrix_x4(ag, g_s + a_off + 16 * ks);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        sr3::ldmatrix_x4(b, k_s + 16 * jp * ld + b_off + 16 * ks);
+        sr3::mma_bf16(s[2 * jp], aq, b[0], b[1]);
+        sr3::mma_bf16(s[2 * jp + 1], aq, b[2], b[3]);
+        sr3::ldmatrix_x4(b, v_s + 16 * jp * ld + b_off + 16 * ks);
+        sr3::mma_bf16(dp[2 * jp], ag, b[0], b[1]);
+        sr3::mma_bf16(dp[2 * jp + 1], ag, b[2], b[3]);
+      }
+    }
+    group_sum(s, mine, group, 1 + qg);
+    sr3::bar_sync(1 + qg, 128);  // the group has read the S partials
+    group_sum(dp, mine, group, 1 + qg);
+
+    // P and dS in float32; masked queries and keys give 0
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int j = i / 4, e = i % 4, r = e / 2;
+      const bool ok = query0 + 8 * r < S && kcol + 8 * j + e % 2 < S;
+      const float p = ok ? expf(s[j][e] * scale - lq[r]) : 0.f;
+      dp[j][e] = p * (dp[j][e] - dsq[r]) * scale;
+    }
+    uint32_t da[2][4];  // keys 0-15, 16-31
+    sr3::c_to_a(da[0], dp[0], dp[1]);
+    sr3::c_to_a(da[1], dp[2], dp[3]);
+
+    // dQ += dS K over this warp's columns
+    const bf16* kt = k_s + lane * ld;
+#pragma unroll
+    for (int i = 0; i < kMaxNT; ++i) {
+      if (nt0 + i < nt1) {
+        uint32_t b[4];
+        sr3::ldmatrix_x4_trans(b, kt + 8 * (nt0 + i));
+        sr3::mma_bf16(acc[i], da[0], b[0], b[1]);
+        sr3::mma_bf16(acc[i], da[1], b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = query0 + 8 * r;
+    if (qi >= S) continue;
+    float* row = dq + base + (size_t)qi * D + 2 * tig;
+#pragma unroll
+    for (int i = 0; i < kMaxNT; ++i)
+      if (nt0 + i < nt1)
+        *reinterpret_cast<float2*>(row + 8 * (nt0 + i)) =
+            make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
+  }
+}
+
+// 16-byte cp.async copies: every row starts 16-byte aligned (D % 16 == 0)
+bool misaligned(const void* q, const void* k, const void* v, const void* g) {
+  return (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g)) %
+         16;
+}
+
 cudaError_t dkv_mma(const void* q, const void* k, const void* v,
                     const void* g, const float* lse, const float* dsum,
                     float* dk, float* dv, int BH, int S, int D, float scale,
                     cudaStream_t stream) {
-  // 16-byte cp.async copies: every row starts 16-byte aligned (D % 16 == 0)
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g)) % 16)
-    return cudaErrorInvalidValue;
+  if (misaligned(q, k, v, g)) return cudaErrorInvalidValue;
   static sr3::SmemLimit limit;
   cudaError_t err = sr3::raise_smem_limit(
       limit, (const void*)flash_bwd_dkv_mma_kernel, dkv_mma_smem_bytes(kDMax));
@@ -472,6 +652,23 @@ cudaError_t dkv_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, dsum, dk,
       dv, S, D, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dq_mma(const void* q, const void* k, const void* v,
+                   const void* g, const float* lse, const float* dsum,
+                   float* dq, int BH, int S, int D, float scale,
+                   cudaStream_t stream) {
+  if (misaligned(q, k, v, g)) return cudaErrorInvalidValue;
+  static sr3::SmemLimit limit;
+  cudaError_t err = sr3::raise_smem_limit(
+      limit, (const void*)flash_bwd_dq_mma_kernel, dq_mma_smem_bytes(kDMax));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kQBQ - 1) / kQBQ, BH);
+  flash_bwd_dq_mma_kernel<<<grid, kMThreads, dq_mma_smem_bytes(D), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, dsum, dq,
+      S, D, scale);
   return cudaGetLastError();
 }
 
@@ -504,9 +701,9 @@ extern "C" int sr3_flash_attention_bwd_dkv(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// K6: dq, with the operands of K5; dq: (BH, S, D) float32.
+// K6: dq, with the operands of K5 (g of dtype too); dq: (BH, S, D) float32.
 extern "C" int sr3_flash_attention_bwd_dq(const void* q, const void* k,
-                                          const void* v, const float* g,
+                                          const void* v, const void* g,
                                           const float* lse, const float* dsum,
                                           float* dq, int BH, int S, int D,
                                           float scale, int dtype,
@@ -514,9 +711,9 @@ extern "C" int sr3_flash_attention_bwd_dq(const void* q, const void* k,
   if (bad_shape(BH, S, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == sr3::kF32)
-    return (int)dq_t<float>(q, k, v, g, lse, dsum, dq, BH, S, D, scale, st);
+    return (int)dq_t<float>(q, k, v, static_cast<const float*>(g), lse, dsum,
+                            dq, BH, S, D, scale, st);
   if (dtype == sr3::kBF16)
-    return (int)dq_t<__nv_bfloat16>(q, k, v, g, lse, dsum, dq, BH, S, D,
-                                    scale, st);
+    return (int)dq_mma(q, k, v, g, lse, dsum, dq, BH, S, D, scale, st);
   return (int)cudaErrorInvalidValue;
 }

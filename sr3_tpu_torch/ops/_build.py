@@ -48,12 +48,14 @@ _SIGNATURES = {
     # x, pre_scale, pre_bias, gamma, beta, w, bias, res, y, workspace, B, H,
     # W, Cin, Cout, G, eps, dtype, stream
     "sr3_gn_silu_conv3x3": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
+    # counts (4 long long), reset
+    "sr3_gn_silu_conv3x3_tiles": ([_P, _I], _I),
     # q, k, v, o, lse, BH, S, D, scale, dtype, stream
     "sr3_flash_attention_fwd": ([_P] * 5 + [_I] * 3 + [_F, _I, _P], _I),
     # q, k, v, g (of dtype), lse, dsum, dk, dv, BH, S, D, scale, dtype,
     # stream
     "sr3_flash_attention_bwd_dkv": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
-    # q, k, v, g, lse, dsum, dq, BH, S, D, scale, dtype, stream
+    # q, k, v, g (of dtype), lse, dsum, dq, BH, S, D, scale, dtype, stream
     "sr3_flash_attention_bwd_dq": ([_P] * 7 + [_I] * 3 + [_F, _I, _P], _I),
 }
 

@@ -12,9 +12,10 @@ autograd it saves the logsumexp and its backward runs K5 then K6, as
 ``_flash_with_vjp`` does; without grad the forward skips the logsumexp.
 Layout (batch*heads, seq, head_dim); outputs are float32, as the TPU
 kernels'. On CUDA the input dtype picks each kernel's route: float32 FMAs,
-or for bfloat16 K4's and K5's tensor-core route, which rounds P (K4) and
-dO, P and dS (K5) to bf16 before their products (within 2e-2 of max|plain|;
-the logsumexp within 1e-4; the csrc headers give the reasons).
+or for bfloat16 the tensor-core routes of K4, K5 and K6, which round P (K4),
+dO, P and dS (K5) and dO, dS (K6) to bf16 before their products (within
+2e-2 of max|plain|; the logsumexp within 1e-4; the csrc headers give the
+reasons).
 """
 
 from __future__ import annotations
@@ -107,7 +108,9 @@ def attention_fwd(q, k, v, scale):
 def attention_bwd(q, k, v, g, lse, dsum, scale):
     """(dq, dk, dv) float32: the plain version on the CPU; on CUDA kernel K5
     (dk, dv) then kernel K6 (dq). g: float32 (bh, seq, d); lse, dsum: float32
-    (bh, seq); all contiguous, on q's device."""
+    (bh, seq); all contiguous, on q's device. Both kernels take dO in q's
+    dtype: the bfloat16 routes get g rounded once; dsum comes from the
+    float32 g."""
     _check_qkv(q, k, v)
     bh, seq, d = q.shape
     for name, t, shape in (("g", g, (bh, seq, d)), ("lse", lse, (bh, seq)),
@@ -120,17 +123,19 @@ def attention_bwd(q, k, v, g, lse, dsum, scale):
         return attention_bwd_plain(q, k, v, g, lse, dsum, scale)
     dq, dk, dv = (torch.empty((bh, seq, d), dtype=torch.float32,
                               device=q.device) for _ in range(3))
-    # K5 takes dO in q's dtype: its bf16 route rounds it once here
-    _bwd_kernel("sr3_flash_attention_bwd_dkv", dkv_counter, q, k, v,
-                g.to(q.dtype), lse, dsum, (dk, dv), scale)
+    g = g.to(q.dtype)
+    _bwd_kernel("sr3_flash_attention_bwd_dkv", dkv_counter, q, k, v, g, lse,
+                dsum, (dk, dv), scale)
     _bwd_kernel("sr3_flash_attention_bwd_dq", dq_counter, q, k, v, g, lse,
                 dsum, (dq,), scale)
     return dq, dk, dv
 
 
 def _bwd_kernel(entry, count, q, k, v, g, lse, dsum, outs, scale):
-    """Launch one backward kernel (K5: outs (dk, dv), g in q's dtype; K6:
-    outs (dq,), g float32) on checked operands."""
+    """Launch one backward kernel (K5: outs (dk, dv); K6: outs (dq,)) on
+    checked operands, g in q's dtype."""
+    if g.dtype != q.dtype:
+        raise ValueError(f"g dtype {g.dtype} != q dtype {q.dtype}")
     bh, seq, d = q.shape
     err = getattr(_build.load_library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

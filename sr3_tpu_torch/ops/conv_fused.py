@@ -16,6 +16,8 @@ reads).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -24,6 +26,21 @@ from sr3_tpu_torch.ops.groupnorm import (check_channels_last,
                                          group_norm_plain, stats_workspace)
 
 counter = _build.LaunchCount("gn_silu_conv3x3")
+# The bfloat16 kernel's tiles <TW, NI, BN> (tile width, images per block,
+# output channels per block), in the order sr3_gn_silu_conv3x3_tiles
+# reports their launches.
+BF16_TILES = ("<16,1,128>", "<16,1,64>", "<16,1,8>", "<8,2,64>")
+
+
+def bf16_tile_launches(reset=False):
+    """Launches of each bfloat16 tile since the last reset, by tile name;
+    ``reset`` sets them to 0 after reading. Loads the CUDA library."""
+    counts = (ctypes.c_longlong * len(BF16_TILES))()
+    n = _build.load_library().sr3_gn_silu_conv3x3_tiles(counts, int(reset))
+    if n != len(BF16_TILES):
+        raise RuntimeError(f"the library reports {n} bfloat16 tiles, "
+                           f"expected {len(BF16_TILES)}")
+    return dict(zip(BF16_TILES, counts))
 
 
 def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias, num_groups,
