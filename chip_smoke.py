@@ -14,10 +14,19 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
      error relative to max|plain| (TOL); K1 also at every shape of the
      64->512 UNet (batch 2; both shape lists checked against the models'
      Blocks) and at two of its serving-batch shapes, each bf16 check
-     labelled with the tile it launched; K4's logsumexp and the backward
+     labelled with the tile it launched; K2 at every site of both UNets
+     (K2_SITES, K2_SITES_512, checked against the models) at every batch
+     the paths run it at (k2_batches), each check labelled with the cluster
+     size it launched, a ragged map and a slice too large for a cluster's
+     shared memory; K4's logsumexp and
+     the backward
      kernels K5 / K6 at the training shapes and a ragged one; the autograd
      Functions of K1, K2 and K4 against autograd of their plain versions,
-     every input gradient;
+     every input gradient; then the GroupNorm launches: device kernels per
+     call from torch.profiler (K2: 1; K1: 2, its statistics and its conv),
+     two calls on the same input bit-identical, K1's ticket counters back
+     at 0, and the C library's plan (cluster size, channel block,
+     residency) printed for every K2 site;
   4. full-width model: the 97.8M-parameter SR3 16->128 UNet (random seeded
      weights), one float32 forward on the card (kernels) against the same
      weights on the CPU (plain versions), and the bf16 sampling copy of the
@@ -28,8 +37,9 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
      kernel must have launched; frames must be finite and 1 + n_snap per
      image;
   6. timing (printed, not gated): ms per UNet step of the T=2000 chain at
-     batch 8 in bf16 and the 2000-step images/s extrapolated from it; ms per
-     call of K1, K2 and K4 against their plain versions;
+     batch 8 in bf16 and the 2000-step images/s extrapolated from it, and a
+     torch.profiler window over two steps (device launches per step); ms
+     per call of K1, K2 and K4 against their plain versions;
   7. training path: the train-phase Trainer (batch 4, bf16 compute, float32
      parameters, dropout 0.2, Adam 1e-4) through train_loop for TRAIN_STEPS
      steps on seeded synthetic (HR, SR) batches; counters zeroed just
@@ -76,10 +86,12 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      and as the profiler's device ms per call; and the least time the card
      could take (bound_ms: the larger of bytes over 3.35 TB/s and operations
      over 989 TFLOP/s). Beside K1, cuDNN's conv3x3 alone at its shape (not
-     the same function, so not library_ms). The JSON line carries the first
-     shape of each.
-After phase 17 the bf16 K1 tiles launched since phase 3 (the main paths and
-the timing) must all be tiles that phase 3 checked.
+     the same function, so not library_ms); K2 also at the 16->128 training
+     site 4x64x128^2 with SiLU and the 64->512 serving site 8x512x64^2. The
+     JSON line carries the first shape of each.
+After phase 17 the bf16 K1 tiles, and K2's (dtype, cluster size,
+residency), launched since phase 3 (the main paths and the timing) must
+all be ones that phase 3 checked.
 
 Then one JSON line with every kernel's route, source, the TPU kernel it
 replaces, launches in phase 12 (and on the other paths), max error and
@@ -131,7 +143,18 @@ K1_SHAPES = [
     (512, 256, 32), (384, 256, 32), (384, 128, 64), (256, 128, 64),
     (192, 128, 64), (192, 64, 128), (128, 64, 128), (64, 3, 128),
 ]
-K2_SHAPES = [(512, 16), (512, 8)]          # (C, H=W), swish off
+# (C, H=W, swish) of the K2 calls of a 16->128 training forward: the
+# dropout Blocks (GroupNorm+SiLU; maps of 256^2 and more take the statistics
+# route instead) and the attention pre-norms; phase 3 checks the list
+# against the model (k2_sites) and runs it at every batch of k2_batches
+K2_SITES = [(64, 128, True), (128, 64, True), (256, 32, True),
+            (512, 16, True), (512, 8, True), (512, 16, False),
+            (512, 8, False)]
+K2_SERVING = [(512, 16), (512, 8)]         # (C, H=W), swish off, timed
+# (B, C, H, W, G, swish): a ragged map, and a slice larger than a 16-block
+# cluster's shared memory (128 channels a group at 128^2), which the
+# kernel normalizes from a second read of x
+K2_EXTRA = [(2, 96, 10, 10, 32, True), (1, 256, 128, 128, 2, True)]
 K4_SHAPES = [(256, 512), (64, 512)]        # (seq, head_dim)
 # (batch*heads, seq, head_dim) of K4-with-lse, K5 and K6 in the train step
 # at batch 4, and a ragged shape
@@ -151,6 +174,9 @@ K1_SHAPES_512 = [
     (128, 64, 512), (64, 3, 512),
 ]
 BATCH_CHECK_512 = 2
+# the K2 calls of a 64->512 training forward (as K2_SITES), 16 groups
+K2_SITES_512 = [(256, 128, True), (512, 64, True), (512, 32, True),
+                (512, 64, False), (512, 32, False)]
 # (B, Cin, Cout, H=W): K1 calls of the batch-8 512^2 serving step on which
 # the bf16 route takes 128 output channels a block, over 4 and 2 blocks of
 # them; phase 3 checks these too
@@ -178,13 +204,17 @@ FMA, MMA = "float32 FMA", "bf16 mma.sync tensor cores, float32 accumulate"
 WGMMA = ("bf16 wgmma tensor cores (A by ldmatrix from registers, B by "
          "shared-memory descriptor), float32 accumulate, cp.async weight "
          "ring and halo")
+GN_CLUSTER = ("one launch: a thread-block cluster per (image, channel "
+              "block), 16-byte loads, the range resident in shared memory, "
+              "sums folded through distributed shared memory in rank order, "
+              "float32 arithmetic")
 KERNELS = {
     "gn_silu_conv3x3": ("sr3_tpu_torch/csrc/conv_fused.cu",
                         "sr3_tpu/ops/conv_fused.py:117",
                         {"float32": FMA, "bfloat16": WGMMA}),
     "group_norm": ("sr3_tpu_torch/csrc/groupnorm.cu",
                    "sr3_tpu/ops/groupnorm.py:237",
-                   {"float32": FMA, "bfloat16": FMA}),
+                   {"float32": GN_CLUSTER, "bfloat16": GN_CLUSTER}),
     "flash_attention_fwd": ("sr3_tpu_torch/csrc/attention.cu",
                             "sr3_tpu/ops/attention.py:58",
                             {"float32": FMA, "bfloat16": MMA + ", cp.async"}),
@@ -372,7 +402,18 @@ def kernel_phase(torch, errs):
     k1_cases = ([(BATCH_CHECK, *s) for s in K1_SHAPES]
                 + [(BATCH_CHECK_512, *s) for s in K1_SHAPES_512]
                 + K1_SERVING_512)
-    checked_tiles = set()
+    k2_cases = K2_EXTRA[:]
+    for config, sites in ((CONFIG, K2_SITES), (CONFIG_512, K2_SITES_512)):
+        opt = _load_opt(config=config)
+        model_sites = k2_sites(torch, config)
+        if sorted(set(model_sites)) != sorted(sites):
+            failures.append(f"K2 sites of {os.path.basename(config)}: the "
+                            f"model's {sorted(set(model_sites))}")
+        groups = opt["model"]["unet"].get("norm_groups") or 32
+        for b in k2_batches(opt):
+            k2_cases += [(b, c, h, h, groups, swish) for c, h, swish in sites
+                         if (b, c, h, h, groups, swish) not in k2_cases]
+    checked_tiles, checked_clusters = set(), set()
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for b, cin, cout, hw in k1_cases:
@@ -390,14 +431,22 @@ def kernel_phase(torch, errs):
                 record("gn_silu_conv3x3", dn, label, out,
                        conv_fused.gn_silu_conv3x3_plain(*args, **kw))
                 del args, kw, out
-        for c, hw in K2_SHAPES:
-            x = torch.randn(BATCH_CHECK, c, hw, hw, device="cuda", generator=g)
+        for b, c, h, w, groups, swish in k2_cases:
+            x = torch.randn(b, c, h, w, device="cuda", generator=g)
             x = (3 * x + 1).to(dtype).contiguous(memory_format=torch.channels_last)
             gw = 1 + 0.2 * torch.randn(c, device="cuda", generator=g)
             gb = 0.1 * torch.randn(c, device="cuda", generator=g)
-            record("group_norm", dn, f"{BATCH_CHECK}x{c}x{hw}x{hw}",
-                   groupnorm.group_norm(x, gw, gb, 32, swish=False),
-                   groupnorm.group_norm_plain(x, gw, gb, 32, swish=False))
+            groupnorm.cluster_launches(reset=True)
+            out = groupnorm.group_norm(x, gw, gb, groups, swish=swish)
+            launched = groupnorm.cluster_launches()
+            checked_clusters.update(launched)
+            label = (f"{b}x{c}x{h}x{w} G={groups}"
+                     + (" +silu" if swish else "") + " cluster "
+                     + ",".join(f"{n}" + ("" if res else " not resident")
+                                for _, n, res in launched))
+            record("group_norm", dn, label, out,
+                   groupnorm.group_norm_plain(x, gw, gb, groups, swish=swish))
+            del x, out
         for seq, d in K4_SHAPES:
             q, k, v = (torch.randn(BATCH_CHECK, seq, d, device="cuda",
                                    generator=g).to(dtype) for _ in range(3))
@@ -432,7 +481,8 @@ def kernel_phase(torch, errs):
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
     conv_fused.bf16_tile_launches(reset=True)
-    return checked_tiles
+    groupnorm.cluster_launches(reset=True)
+    return checked_tiles, checked_clusters
 
 
 @phase("K1 tiles")
@@ -446,6 +496,28 @@ def k1_tile_phase(checked):
     if not taken or set(taken) - checked:
         raise AssertionError(f"bf16 K1 tiles launched but not checked: "
                              f"{sorted(set(taken) - checked)}")
+
+
+@phase("K2 clusters")
+def k2_cluster_phase(checked):
+    """Fail if a K2 launch since phase 3 took a (dtype, cluster size,
+    residency) that phase 3 did not check against the plain version."""
+    from sr3_tpu_torch.ops import groupnorm
+
+    taken = groupnorm.cluster_launches()
+    print(f"  K2 launches by (dtype, cluster size, resident) since phase 3: "
+          f"{dict(sorted(taken.items()))}; checked in phase 3: "
+          f"{sorted(checked)}", flush=True)
+    if not taken or set(taken) - checked:
+        raise AssertionError(f"K2 clusters launched but not checked: "
+                             f"{sorted(set(taken) - checked)}")
+
+
+def k2_batches(opt):
+    """The batches at which the paths run K2 on ``opt``'s model: 1 (the
+    full-width forward and the gradient phases), 2 (run_sr's groups of two
+    images), the train batch and BATCH_TIME (the timed serving steps)."""
+    return sorted({1, 2, opt["datasets"]["train"]["batch_size"], BATCH_TIME})
 
 
 def k1_sites(torch, config):
@@ -470,6 +542,31 @@ def k1_sites(torch, config):
         else:
             out += [conv(layer.res_block.block1), conv(layer.res_block.block2)]
     return out + [conv(net.final_conv)]
+
+
+def k2_sites(torch, config, training=True):
+    """(C, H, swish) of each K2 call of one UNet forward of ``config``'s
+    model, in order, read off a meta-device copy: with ``training`` the
+    dropout Block (block2) of every ResnetBlock on maps below STATS_MIN_HW
+    (GroupNorm + SiLU), and every attention pre-norm (no SiLU)."""
+    from sr3_tpu_torch.models.networks import define_G
+    from sr3_tpu_torch.models.unet import Downsample, Upsample
+    from sr3_tpu_torch.ops.groupnorm import STATS_MIN_HW
+
+    net = define_G(_load_opt(config=config), device="meta").denoise_fn
+    res, out = net.image_size, []
+    for layer in (*net.downs[1:], *net.mid, *net.ups):
+        if isinstance(layer, Downsample):
+            res //= 2
+        elif isinstance(layer, Upsample):
+            res *= 2
+        else:
+            block2 = layer.res_block.block2
+            if training and block2.dropout and res * res < STATS_MIN_HW:
+                out.append((block2.block[3].weight.shape[0], res, True))
+            if layer.attn is not None:
+                out.append((layer.attn.qkv.weight.shape[1], res, False))
+    return out
 
 
 def _function_cases(torch, g, dtype):
@@ -885,6 +982,9 @@ def timing_phase(torch, trainer):
     print(f"  UNet step (p_sample_step) B={BATCH_TIME} {net.dtype}: "
           f"{step_ms:.3f} ms/step (mean of 20 steps of the T=2000 chain); "
           f"2000-step throughput extrapolated {ips:.4f} img/s", flush=True)
+    with torch.inference_mode():  # device launches and busy share
+        _profile_steps(torch, lambda: diff.p_sample_step(
+            net, sched, img, next(steps), cond, generator=g), 2)
 
     dt, cl = torch.bfloat16, torch.channels_last
     times = {}
@@ -900,7 +1000,7 @@ def timing_phase(torch, trainer):
         pair("gn_silu_conv3x3", f"{BATCH_TIME}x{cin}x{hw}x{hw}->{cout}",
              lambda: conv_fused.gn_silu_conv3x3(*args, **kw),
              lambda: conv_fused.gn_silu_conv3x3_plain(*args, **kw))
-    for c, hw in K2_SHAPES:
+    for c, hw in K2_SERVING:
         x = torch.randn(BATCH_TIME, c, hw, hw, device="cuda", generator=g)
         x = x.to(dt).contiguous(memory_format=cl)
         gw, gb = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
@@ -1211,6 +1311,15 @@ def serving_512_phase(torch):
     steps = iter(range(1999, -1, -1))
     step = lambda: trainer.diffusion.p_sample_step(
         net, sched, img, next(steps), cond, generator=gd)
+    # the least time the step's GroupNorm statistics could take: each K1
+    # input and each K2 input (the attention pre-norms) read once
+    stats_bytes = 2 * bt * (
+        sum(cin * h * h for cin, _, h in k1_sites(torch, CONFIG_512))
+        + sum(c * h * h for c, h, _ in k2_sites(torch, CONFIG_512,
+                                                 training=False)))
+    print(f"  GroupNorm statistics of the step read {stats_bytes / 1e9:.3f} "
+          f"GB: bound {1000 * stats_bytes / PEAK_BYTES:.3f} ms at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s", flush=True)
     with torch.inference_mode():
         ms = _time_each(torch, step, 10)
         step_ms = float(np.median(ms))
@@ -1286,6 +1395,10 @@ def _profile_steps(torch, step, n):
     rest = sum(t for _, (t, _) in rows[16:]) / 1000 / n
     print(f"    {rest:9.3f} ms  the other {len(rows) - 16} kernels",
           flush=True)
+    gn = [(t, k) for name, (t, k) in rows if any(f in name for f in GN_KERNELS)]
+    print(f"  GroupNorm kernels (K1's statistics launch, K2): "
+          f"{sum(t for t, _ in gn) / 1000 / n:.3f} ms/step in "
+          f"{sum(k for _, k in gn) / n:.0f} launches/step", flush=True)
 
 
 @phase("64->512 training timing")
@@ -1322,20 +1435,129 @@ def _sdpa_backend(torch, fn):
                    if e.name.startswith("aten::_scaled_dot_product")})
 
 
+def _device_by_kernel(torch, fn, n=5, tries=4):
+    """{kernel name: (device ms per launch, launches per call)} of ``fn``
+    from a torch.profiler window over n calls, after one warm-up. The
+    profiler on this card drops a kernel's record now and then, whole: a
+    launch's time is the mean over the records kept, and a window whose
+    records do not come to a whole number per call is taken again, up to
+    ``tries`` times (the fullest is kept), its launches per call rounded
+    and at least 1 for a kernel seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    best = None
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)  # let the tracer deliver the window's records
+        got = {}
+        for e in _device_events(torch, prof):
+            t, k = got.get(e.name, (0.0, 0))
+            got[e.name] = (t + e.time_range.elapsed_us() / 1000, k + 1)
+        if best is None or sum(k for _, k in got.values()) > \
+                sum(k for _, k in best.values()):
+            best = got
+        if got and all(k % n == 0 for _, k in got.values()):
+            break
+    return {name: (t / k, max(1, round(k / n)))
+            for name, (t, k) in best.items()}
+
+
+def _call_ms(by):
+    """Device ms per call from _device_by_kernel's result."""
+    return sum(ms * k for ms, k in by.values())
+
+
 def _device_ms(torch, fn, n=5):
     """Device time per call of ``fn`` (the sum of its kernels' durations in
     a torch.profiler window over n calls, after one warm-up): without the
     host's launch gaps that CUDA events around a call include."""
-    from torch.profiler import ProfilerActivity, profile
+    return _call_ms(_device_by_kernel(torch, fn, n))
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+
+def _short(name):
+    """A kernel's name without its return type, namespaces and arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    base, lt, args = name.split("(")[0].partition("<")
+    return (base.split("::")[-1] + lt + args)[:60]
+
+
+# the port's GroupNorm kernels: K1's statistics launch and K2
+GN_KERNELS = ("gn_stats_kernel<", "gn_cluster_kernel<")
+
+
+@phase("GroupNorm launches")
+def gn_launch_phase(torch):
+    """The C library's plan at every K2 site (bf16, train batch and batch
+    8: each must keep its slice resident); K2 in one device launch per call
+    and K1 in two (its statistics, its conv), each bit-identical over two
+    calls on the same input; K1's ticket counters back at 0."""
+    from sr3_tpu_torch.ops import conv_fused, groupnorm
+
+    failures = []
+    for config, sites in ((CONFIG, K2_SITES), (CONFIG_512, K2_SITES_512)):
+        opt = _load_opt(config=config)
+        groups = opt["model"]["unet"].get("norm_groups") or 32
+        for b in (opt["datasets"]["train"]["batch_size"], BATCH_TIME):
+            for c, h, _ in sites:
+                p = groupnorm.gn_plan((b, c, h, h), groups, torch.bfloat16)
+                print(f"  K2 plan {b}x{c}x{h}x{h} G={groups} bf16: cluster "
+                      f"{p['splits']} x {b * c // p['cb']} ({p['cb']} "
+                      f"channels, {p['per']} pixels, {p['threads']} threads "
+                      f"a block), resident {p['resident']}, "
+                      f"{p['smem_bytes']} B shared memory", flush=True)
+                if not p["resident"]:
+                    failures.append(f"K2 {b}x{c}x{h}x{h} not resident")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    cases = []
+    for b, c, h, groups, swish, dtype in (
+            (2, 512, 64, 16, False, torch.bfloat16),
+            (4, 64, 128, 32, True, torch.bfloat16),
+            (2, 512, 64, 16, True, torch.float32),
+            (2, 96, 10, 32, True, torch.bfloat16)):
+        x = (3 * torch.randn(b, c, h, h, device="cuda", generator=g) + 1)
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        gw = 1 + 0.2 * torch.randn(c, device="cuda", generator=g)
+        gb = 0.1 * torch.randn(c, device="cuda", generator=g)
+        fn = (lambda x=x, gw=gw, gb=gb, groups=groups, swish=swish:
+              groupnorm.group_norm(x, gw, gb, groups, swish=swish))
+        cases.append(("K2", f"{b}x{c}x{h}x{h} G={groups}"
+                      + (" +silu" if swish else "") + f" {dtype}", fn, 1))
+    for b, cin, cout, hw in ((2, 64, 64, 512), (8, 1024, 512, 8)):
+        args, kw = _k1_inputs(torch, g, b, cin, cout, hw, torch.bfloat16,
+                              True)
+        p = groupnorm.gn_plan((b, cin, hw, hw), 32, torch.bfloat16, "stats")
+        fn = lambda args=args, kw=kw: conv_fused.gn_silu_conv3x3(*args, **kw)
+        cases.append(("K1", f"{b}x{cin}x{hw}x{hw}->{cout} +film bf16, "
+                      f"statistics in {p['splits']} blocks a slice", fn, 2))
+    for name, label, fn, want in cases:
+        a, b = fn(), fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us()
-               for e in _device_events(torch, prof)) / 1000 / n
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        same = torch.equal(a.view(bits), b.view(bits))
+        by = _device_by_kernel(torch, fn, n=3)
+        launches = sum(k for _, k in by.values())
+        print(f"  {name} {label}: {launches} device launches a call ("
+              + ", ".join(f"{_short(k)} {ms:.4f} ms x{n}"
+                          for k, (ms, n) in by.items())
+              + f"); two calls bit-identical: {same}", flush=True)
+        if launches != want or not same:
+            failures.append(f"{name} {label}: {launches} launches (want "
+                            f"{want}), bit-identical {same}")
+    for (device, stream), tickets in groupnorm._tickets.items():
+        busy = int(torch.count_nonzero(tickets))
+        print(f"  K1 ticket counters on {device} stream {stream:#x}: "
+              f"{tickets.numel()}, "
+              f"{busy} not 0", flush=True)
+        if busy:
+            failures.append(f"{busy} ticket counters left non-zero")
+    if failures:
+        raise AssertionError(f"GroupNorm launches: {failures}")
 
 
 @phase("64->512 kernel timing")
@@ -1357,12 +1579,19 @@ def kernel_timing_512_phase(torch):
         t = {}
         for key, f in fns.items():
             t[key + "ms"] = None if f is None else _time_ms(torch, f, n=5)
-            t[key + "device_ms"] = None if f is None else _device_ms(torch, f)
+            t[key + "device_ms"] = None if f is None or not key else \
+                _device_ms(torch, f)
+        kernels = _device_by_kernel(torch, fn)
+        t["device_ms"] = _call_ms(kernels)
+        t["device_launches_per_call"] = sum(k for _, k in kernels.values())
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         bound_ms = 1000 * max(t_ops, t_bytes)
         by = "operations" if t_ops > t_bytes else "bytes"
         out.setdefault(name, {**t, "bound_ms": bound_ms, "bound_by": by,
                               "shape": shape})
+        print(f"  {name} {shape}: device kernels a call: " + ", ".join(
+            f"{_short(k)} {ms:.4f} ms x{n}"
+            for k, (ms, n) in kernels.items()), flush=True)
         show = lambda k: "none" if t[k] is None else f"{t[k]:.4f}"
         print(f"  {name} {shape} bf16, ms (events / device): kernel "
               f"{show('ms')} / {show('device_ms')}, plain {show('plain_ms')} / "
@@ -1400,6 +1629,22 @@ def kernel_timing_512_phase(torch):
           lambda: groupnorm.group_norm_plain(x, gw, gb, 16, swish=False),
           lambda: F.group_norm(x, 16, gw16, gb16, 1e-5),
           10 * x.numel(), 2 * 2 * x.numel())
+    # the 16->128 training site (dropout Block, SiLU; library: F.group_norm
+    # without the SiLU) and the 64->512 serving site
+    for bb, c, hw, groups, swish in ((4, 64, 128, 32, True),
+                                     (8, 512, 64, 16, False)):
+        x = torch.randn(bb, c, hw, hw, device="cuda", generator=g)
+        x = x.to(dt).contiguous(memory_format=cl)
+        gw = 1 + 0.2 * torch.randn(c, device="cuda", generator=g)
+        gb = 0.1 * torch.randn(c, device="cuda", generator=g)
+        gw16, gb16 = gw.to(dt), gb.to(dt)
+        entry("group_norm", f"{bb}x{c}x{hw}x{hw} G={groups} swish "
+              + ("on" if swish else "off"),
+              lambda: groupnorm.group_norm(x, gw, gb, groups, swish=swish),
+              lambda: groupnorm.group_norm_plain(x, gw, gb, groups,
+                                                 swish=swish),
+              lambda: F.group_norm(x, groups, gw16, gb16, 1e-5),
+              (14 if swish else 10) * x.numel(), 2 * 2 * x.numel())
     for _, c, h, w in K3_SHAPES[:2]:
         x = torch.randn(b, c, h, w, device="cuda", generator=g)
         x = x.to(dt).contiguous(memory_format=cl)
@@ -1478,7 +1723,8 @@ def main():
         build_phase()
         errs = {}
         # the SR3 16->128 serving and training paths
-        checked_tiles = kernel_phase(torch, errs)
+        checked_tiles, checked_clusters = kernel_phase(torch, errs)
+        gn_launch_phase(torch)
         trainer = model_phase(torch)
         serving = serving_phase(torch, trainer)
         times = timing_phase(torch, trainer)
@@ -1499,6 +1745,7 @@ def main():
         serving_512 = serving_512_phase(torch)
         timings = kernel_timing_512_phase(torch)
         k1_tile_phase(checked_tiles)
+        k2_cluster_phase(checked_clusters)
     except Exception:  # report any phase's failure, print no result
         traceback.print_exc()
         return 1

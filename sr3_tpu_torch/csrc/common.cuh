@@ -226,27 +226,33 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Raise a kernel's dynamic shared-memory limit (above the 48 KB default)
-// once per device, not before every launch: `state` is a function-local
-// static of the kernel's launcher, and `bytes` the most any launch asks.
+// Set a kernel attribute once per device, not before every launch: `state`
+// is a function-local static of the kernel's launcher.
 constexpr int kMaxDevices = 64;
 struct SmemLimit {
   std::atomic<bool> raised[kMaxDevices];
 };
-inline cudaError_t raise_smem_limit(SmemLimit& state, const void* kernel,
-                                    size_t bytes) {
+inline cudaError_t set_attribute_once(SmemLimit& state, const void* kernel,
+                                      cudaFuncAttribute attr, int value) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const bool keep = dev >= 0 && dev < kMaxDevices;
   if (keep && state.raised[dev].load(std::memory_order_acquire))
     return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+  err = cudaFuncSetAttribute(kernel, attr, value);
   if (err == cudaSuccess && keep)
     state.raised[dev].store(true, std::memory_order_release);
   return err;
+}
+
+// Raise a kernel's dynamic shared-memory limit (above the 48 KB default);
+// `bytes` is the most any launch asks.
+inline cudaError_t raise_smem_limit(SmemLimit& state, const void* kernel,
+                                    size_t bytes) {
+  return set_attribute_once(state, kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            static_cast<int>(bytes));
 }
 
 // Multiprocessor count of the current device, read once per device.
@@ -282,38 +288,163 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
-// GroupNorm statistics for an NHWC map, shared by the GroupNorm kernel (K2)
-// and the fused GroupNorm->SiLU->conv3x3 kernel (K1). Two launches:
-//   1. per-(batch, channel) partial sums of v and v*v over `splits` slices
-//      of the pixels, where v = pre_scale*x + pre_bias (per (b, c); either
-//      pointer may be null for 1 / 0), block = C*rows threads;
-//   2. a fold per batch element: group mean and rstd (one-pass variance
-//      clamped at 0), then per-channel mult = pre_scale*rstd*gamma and
-//      add = (pre_bias - mean)*rstd*gamma + beta, so the normalized value of
-//      v is x*mult + add.
-// workspace: float32 scratch of gn_workspace_floats(B, HW, C) floats, laid
-// out as mult (B, C), add (B, C), then the partial sums (B, splits, C, 2).
-// C must be 1..1024 (one thread per channel).
+// ---- GroupNorm statistics (K2, and the first launch of K1) ----
+//
+// A map x (B, HW, C) is cut into channel blocks of `cb` channels (whole
+// groups, a multiple of the channels one 16-byte load holds, >= 64 or 128
+// bytes of a pixel) and each
+// (batch element, channel block) slice into `splits` pixel ranges of `per`
+// pixels, one thread block each. A block's threads form `rows` x `cols`: a
+// thread owns `vec` neighbouring channels (one 16-byte load: 8 bf16 or 4
+// float32, or 1 where C or the pointers do not allow it) and every rows-th
+// pixel of its range, so a warp's loads are neighbouring channels of
+// neighbouring pixels. Sums are float32 of v = pre_scale*x + pre_bias (per
+// (b, c); identity for K2), taken in a fixed order at every level: a
+// thread's pixels in order, the rows of a block in a fixed tree, the
+// blocks of a slice in index order, the channels of a group in order. The
+// group mean and rstd (one-pass variance clamped at 0) become per-channel
+// mult = pre_scale*rstd*gamma and add = (pre_bias - mean)*rstd*gamma + beta,
+// so the normalized value is x*mult + add.
+//   K2 (groupnorm.cu): the blocks of a slice are one thread-block cluster
+//     (splits = cluster size <= 16); they fold through distributed shared
+//     memory and normalize their own ranges, kept in shared memory when the
+//     slice fits the cluster.
+//   K1's statistics (launch_gn_stats): blocks of a slice write their sums to
+//     fixed slots of the workspace; the last block of the slice to finish
+//     (a ticket counter, reset by that block) folds the slots in index order
+//     and writes mult / add.
 constexpr int kGnMaxChannels = 1024;
+constexpr int kGnThreads = 256;        // per block, when vec > 1
+constexpr int kGnMinBlocksPerSm = 3;   // registers: __launch_bounds__
+constexpr int kGnClusterRowBytes = 64;   // K2: a block's bytes of a pixel
+constexpr int kGnStatsRowBytes = 128;    // K1 statistics: the same
+constexpr int kGnMaxCluster = 16;      // non-portable cluster size on H100
+constexpr int kGnChunkBytes = 64 << 10;  // K2: target bytes of x a block
+constexpr int kGnMaxSmem = 232448;       // shared memory a block can use
+constexpr int kGnStatsBlocksPerSm = 4;   // K1 statistics: blocks per SM
+constexpr int kGnStatsMinPixels = 256;   // K1 statistics: pixels a block
+constexpr int kGnRing = 8;  // K1 statistics: cp.async loads a thread keeps
+                            // in flight (16-byte loads only)
 
-struct GnTiling {
-  int splits, rows;
+struct GnPlan {
+  int vec, cb, cols, rows, threads;  // channels and threads of a block
+  int splits, per;                   // blocks of a slice, pixels of a block
+  int resident;                      // K2: the slice stays in shared memory
+  size_t smem;                       // dynamic shared memory of a block
 };
 
-// `rows` pixel rows per block of C threads (<= 1024 threads), and enough
-// pixel slices that ~4 blocks per SM of an H100 (132 SMs) are in flight
-// even at batch 1, with at least 4 pixels per thread.
-inline GnTiling gn_tiling(int B, int HW, int C) {
-  const int rows = C < 512 ? 512 / C : 1;
-  int splits = (528 + B - 1) / B;
-  if (splits > HW / (4 * rows)) splits = HW / (4 * rows);
-  return {splits < 1 ? 1 : splits, rows};
+// Channels of one 16-byte load, when C allows it.
+inline int gn_vec(int C, int elem) {
+  const int v = 16 / elem;
+  return C % v == 0 ? v : 1;
 }
 
-// Floats of the statistics workspace, or -1 when C is out of range.
-inline long long gn_workspace_floats(int B, int HW, int C) {
-  if (B < 1 || HW < 1 || C < 1 || C > kGnMaxChannels) return -1;
-  return (long long)B * C * (2LL + 2LL * gn_tiling(B, HW, C).splits);
+// The smallest multiple of lcm(C / G, vec) that divides C and spans at
+// least `row_bytes` of a pixel; C when none does.
+inline int gn_block_channels(int C, int G, int elem, int row_bytes) {
+  const int cg = C / G, vec = gn_vec(C, elem);
+  int a = cg, b = vec;
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  const int unit = cg / a * vec;
+  for (int cb = unit; cb < C; cb += unit)
+    if (C % cb == 0 && cb * elem >= row_bytes) return cb;
+  return C;
+}
+
+// Float32 scratch of a block: the thread sums tree-reduced over rows
+// ([2][rows][cb]), the slice's per-channel sums, then mult / add ([2][cb]),
+// and the group mean / rstd ([2][cb / cg]).
+inline size_t gn_scratch_bytes(const GnPlan& p, int cg) {
+  return sizeof(float) *
+         (2 * (size_t)p.rows * p.cb + 2 * (size_t)p.cb + 2 * (p.cb / cg));
+}
+
+// Geometry of a block; vec = 1 when `aligned` is false (x or y not 16-byte
+// aligned). The channel blocks do not depend on it.
+inline GnPlan gn_geometry(int C, int G, int elem, bool aligned,
+                          int row_bytes) {
+  GnPlan p{};
+  p.cb = gn_block_channels(C, G, elem, row_bytes);
+  p.vec = aligned ? gn_vec(C, elem) : 1;
+  p.cols = p.cb / p.vec;
+  p.rows = p.cols >= kGnThreads ? 1 : kGnThreads / p.cols;
+  p.threads = p.cols * p.rows;
+  return p;
+}
+
+// K2: channel blocks of >= 64 bytes a pixel (more clusters at small
+// batch); the cluster of a slice has enough blocks that each holds about
+// kGnChunkBytes of x and the card gets a block per SM, at most 16 and at
+// most HW; resident when a block's range and scratch fit its shared memory.
+// (tools/torch_gn_variants.py: a block per SM beats two on 8^2 and 16^2
+// maps -- larger clusters cost more to launch and synchronize -- and ties
+// elsewhere; 32 or 128 KB chunks and 128-byte rows gain nothing.)
+inline GnPlan gn_cluster_plan(int B, int HW, int C, int G, int elem,
+                              bool aligned, int sms) {
+  GnPlan p = gn_geometry(C, G, elem, aligned, kGnClusterRowBytes);
+  const long long clusters = (long long)B * (C / p.cb);
+  const long long slice = (long long)HW * p.cb * elem;
+  long long cs = (slice + kGnChunkBytes - 1) / kGnChunkBytes;
+  const long long fill = (sms + clusters - 1) / clusters;
+  if (cs < fill) cs = fill;
+  if (cs > kGnMaxCluster) cs = kGnMaxCluster;
+  if (cs > HW) cs = HW;
+  p.splits = cs < 1 ? 1 : (int)cs;
+  p.per = (HW + p.splits - 1) / p.splits;
+  const size_t tile = ((size_t)p.per * p.cb * elem + 15) / 16 * 16;
+  const size_t scratch = gn_scratch_bytes(p, C / G);
+  p.resident = tile + scratch <= (size_t)kGnMaxSmem;
+  p.smem = scratch + (p.resident ? tile : 0);
+  return p;
+}
+
+// K1's statistics: channel blocks of >= 128 bytes a pixel (a warp reads
+// whole 128-byte lines), ~kGnStatsBlocksPerSm blocks per SM over all
+// slices, at least kGnStatsMinPixels pixels a block. With 16-byte loads a
+// thread streams its pixels through kGnRing cp.async slots of shared
+// memory, which the thread sums share with (`red`).
+inline GnPlan gn_stats_plan(int B, int HW, int C, int G, int elem,
+                            bool aligned, int sms) {
+  GnPlan p = gn_geometry(C, G, elem, aligned, kGnStatsRowBytes);
+  const long long slices = (long long)B * (C / p.cb);
+  long long s = ((long long)kGnStatsBlocksPerSm * sms + slices - 1) / slices;
+  const long long most = HW / kGnStatsMinPixels;
+  if (s > most) s = most;
+  p.splits = s < 1 ? 1 : (int)s;
+  p.per = (HW + p.splits - 1) / p.splits;
+  const size_t red = sizeof(float) * 2 * (size_t)p.rows * p.cb;
+  const size_t ring = p.vec > 1 ? (size_t)kGnRing * p.threads * 16 : 0;
+  p.smem = gn_scratch_bytes(p, C / G) + (ring > red ? ring - red : 0);
+  return p;
+}
+
+// Whether the statistics kernels take (B, HW, C, G).
+inline bool gn_takes(int B, int HW, int C, int G) {
+  return B >= 1 && B <= 65535 && HW >= 1 && C >= 1 &&
+         C <= kGnMaxChannels && G >= 1 && C % G == 0;
+}
+
+// Where the slots start in K1's statistics workspace: after mult and add,
+// 16-byte aligned.
+inline size_t gn_slots_offset(int B, int C) {
+  return ((size_t)2 * B * C + 3) / 4 * 4;
+}
+
+// Floats of K1's statistics workspace: mult (B, C), add (B, C), then the
+// slots of the blocks' sums (B, C / cb, splits, 2, cb) when splits > 1;
+// -1 when the kernels do not take the shape or the device is unknown.
+inline long long gn_workspace_floats(int B, int HW, int C, int G, int dtype) {
+  if (!gn_takes(B, HW, C, G) || (dtype != kF32 && dtype != kBF16)) return -1;
+  int sms = 0;
+  if (sm_count(&sms) != cudaSuccess) return -1;
+  const GnPlan p = gn_stats_plan(B, HW, C, G, dtype == kF32 ? 4 : 2, true,
+                                 sms);
+  return (long long)gn_slots_offset(B, C) +
+         (p.splits > 1 ? 2LL * B * C * p.splits : 0);
 }
 
 // Where `add` starts in the workspace (`mult` starts at its beginning).
@@ -321,10 +452,13 @@ inline float* gn_add(float* workspace, int B, int C) {
   return workspace + (size_t)B * C;
 }
 
+// K1's statistics in one launch (groupnorm.cu): mult / add of
+// pre_scale*x + pre_bias into the workspace. `tickets`: B*C int32 that are
+// 0 before the launch and 0 again after it.
 cudaError_t launch_gn_stats(const void* x, int dtype, const float* pre_scale,
                             const float* pre_bias, const float* gamma,
-                            const float* beta, float* workspace, int B,
-                            int HW, int C, int G, float eps,
-                            cudaStream_t stream);
+                            const float* beta, float* workspace,
+                            int* tickets, int B, int HW, int C, int G,
+                            float eps, cudaStream_t stream);
 
 }  // namespace sr3

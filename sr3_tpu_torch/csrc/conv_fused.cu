@@ -12,9 +12,9 @@
 // On the 64->512 path it runs 35 times per train step (C_in 64..1024 at
 // 512^2..32^2) and 35 times per batch-8 512^2 serving step.
 //
-// Launches 1-2 (common.cuh launch_gn_stats), both routes: group statistics
+// Launch 1 (launch_gn_stats, groupnorm.cu), both routes: group statistics
 // of a*x+b and the per-channel mult/add of the normalize, so the normalized
-// value of a channel is x*mult + add. Launch 3 (this file) normalizes, SiLUs
+// value of a channel is x*mult + add. Launch 2 (this file) normalizes, SiLUs
 // and rounds the input halo to the working type in shared memory -- the
 // normalized map never goes to device memory -- with zeros outside the image
 // (the padding belongs to the normalized map, so border taps read 0, not
@@ -501,20 +501,22 @@ dim3 conv_grid(int B, int H, int W, int Cout, int* tiles_w) {
 // x: (B,H,W,Cin), w: (Cout,3,3,Cin), res/y: (B,H,W,Cout), all of dtype;
 // pre_scale/pre_bias: (B,Cin) float32 or null; gamma/beta: (Cin) float32;
 // bias: (Cout) float32 or null; workspace: sr3_gn_workspace_floats(B, H*W,
-// Cin) float32 scratch (groupnorm.cu). bfloat16 needs Cin % 16 == 0.
+// Cin, G, dtype) float32 scratch (groupnorm.cu); tickets: B*Cin int32, 0
+// before the call and left 0 by it. bfloat16 needs Cin % 16 == 0.
 // Returns the CUDA error code (0 on success).
 extern "C" int sr3_gn_silu_conv3x3(const void* x, const float* pre_scale,
                                    const float* pre_bias, const float* gamma,
                                    const float* beta, const void* w,
                                    const float* bias, const void* res,
-                                   void* y, float* workspace, int B, int H,
-                                   int W, int Cin, int Cout, int G, float eps,
-                                   int dtype, void* stream) {
+                                   void* y, float* workspace, int* tickets,
+                                   int B, int H, int W, int Cin, int Cout,
+                                   int G, float eps, int dtype,
+                                   void* stream) {
   if (dtype == sr3::kBF16 && Cin % kCK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = sr3::launch_gn_stats(x, dtype, pre_scale, pre_bias, gamma,
-                                         beta, workspace, B, H * W, Cin, G,
-                                         eps, st);
+                                         beta, workspace, tickets, B, H * W,
+                                         Cin, G, eps, st);
   if (err != cudaSuccess) return (int)err;
   const float* mult = workspace;
   const float* add = sr3::gn_add(workspace, B, Cin);

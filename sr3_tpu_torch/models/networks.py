@@ -3,7 +3,12 @@
 Counterpart of ``sr3_tpu/models/networks.py`` (``define_G``,
 ``count_params``; ``resolve_dtype`` lives in ``utils/runtime.py``). The UNet
 is built with a seeded init on the CPU, then moved to the device in
-``torch.channels_last`` memory with float32 parameters. ``unet.remat``
+``torch.channels_last`` memory with float32 parameters. The init follows
+the JAX package's: with ``phase == "train"`` every Conv2d and Linear weight
+is orthogonal with gain 1 (flax's ``orthogonal()``), otherwise
+lecun-normal (flax's default ``lecun_normal``: a normal truncated at two
+standard deviations, scaled to std 1/sqrt(fan_in)); every bias is zero and
+GroupNorm keeps scale 1, bias 0. ``unet.remat``
 turns on activation checkpointing of the UNet's blocks. ``unet.use_flash``
 is ignored: it picks between the JAX package's materialized and flash
 attention on a TPU, and the port runs its flash kernels at every length.
@@ -11,7 +16,10 @@ attention on a TPU, and the port runs its flash kernels at every length.
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch import nn
 
 from sr3_tpu_torch.models.diffusion import GaussianDiffusion
 from sr3_tpu_torch.models.unet import UNet
@@ -43,6 +51,8 @@ def define_G(opt, device=None, seed=0) -> GaussianDiffusion:
             dtype=resolve_dtype(model_opt.get("dtype"), device),
             remat=bool(unet_opt.get("remat", False)),
         )
+        init_weights(unet, "orthogonal" if opt.get("phase") == "train"
+                     else "default")
     unet = unet.to(device=device, memory_format=torch.channels_last).eval()
     return GaussianDiffusion(
         unet,
@@ -52,6 +62,29 @@ def define_G(opt, device=None, seed=0) -> GaussianDiffusion:
         conditional=diff_opt["conditional"],
         cond_mode=cond_mode,
     )
+
+
+# std of a standard normal truncated at +-2 (flax's variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_weights(net, init_type):
+    """Every Conv2d and Linear of ``net``: the weight orthogonal (gain 1) for
+    ``init_type == "orthogonal"``, else lecun-normal; the bias zero. Draws
+    from torch's default generator, in module order."""
+    for m in net.modules():
+        if not isinstance(m, (nn.Conv2d, nn.Linear)):
+            continue
+        with torch.no_grad():
+            if init_type == "orthogonal":
+                nn.init.orthogonal_(m.weight, gain=1.0)
+            else:
+                fan_in = m.weight[0].numel()  # in * kh * kw, or in
+                std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                      b=2 * std)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
 
 
 def count_params(model) -> int:

@@ -37,17 +37,21 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 # name: (argtypes, restype)
 _SIGNATURES = {
-    # B, HW, C
-    "sr3_gn_workspace_floats": ([_I] * 3, _L),
-    # x, gamma, beta, y, workspace, B, HW, C, G, eps, swish, dtype, stream
-    "sr3_group_norm": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # B, HW, C, G, dtype
+    "sr3_gn_workspace_floats": ([_I] * 5, _L),
+    # B, HW, C, G, dtype, route, out (8 long long)
+    "sr3_gn_plan": ([_I] * 6 + [_P], _I),
+    # x, gamma, beta, y, B, HW, C, G, eps, swish, dtype, stream
+    "sr3_group_norm": ([_P] * 4 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # counts (64 long long), reset
+    "sr3_group_norm_clusters": ([_P, _I], _I),
     # B, HW, C, dtype
     "sr3_gn_stats_workspace_floats": ([_I] * 4, _L),
     # x, s1, s2, workspace, B, HW, C, dtype, stream
     "sr3_gn_stats": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    # x, pre_scale, pre_bias, gamma, beta, w, bias, res, y, workspace, B, H,
-    # W, Cin, Cout, G, eps, dtype, stream
-    "sr3_gn_silu_conv3x3": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
+    # x, pre_scale, pre_bias, gamma, beta, w, bias, res, y, workspace,
+    # tickets, B, H, W, Cin, Cout, G, eps, dtype, stream
+    "sr3_gn_silu_conv3x3": ([_P] * 11 + [_I] * 6 + [_F, _I, _P], _I),
     # counts (4 long long), reset
     "sr3_gn_silu_conv3x3_tiles": ([_P, _I], _I),
     # q, k, v, o, lse, BH, S, D, scale, dtype, stream
@@ -108,6 +112,14 @@ def build():
     out = library_path()
     if os.path.isfile(out):
         return out
+    return compile_library(CSRC_DIR, out)
+
+
+def compile_library(src_dir, out):
+    """Compile every ``*.cu`` of ``src_dir`` with NVCC_FLAGS, one nvcc
+    process each, all started together, and link them into the shared
+    library ``out`` (ptxas' output beside it as ``out + ".log"``). Returns
+    ``out``. Raises RuntimeError when nvcc is missing or fails."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -116,11 +128,12 @@ def build():
             "CUDA_HOME at it (searched $CUDA_HOME, $CUDA_PATH, $PATH and "
             f"{DEFAULT_CUDA_HOME})."
         )
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    out_dir = os.path.dirname(os.path.abspath(out))
+    os.makedirs(out_dir, exist_ok=True)
+    cu = sorted(glob.glob(os.path.join(src_dir, "*.cu")))
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
-        cmds = [[nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", o, p]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", src_dir, "-c", "-o", o, p]
                 for p, o in zip(cu, objs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -144,16 +157,21 @@ def build():
     return out
 
 
+def bind(lib):
+    """Set the ctypes signature of every C entry (_SIGNATURES) on a loaded
+    kernel library; returns it."""
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
 def load_library():
     """The loaded kernel library (built first if needed)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build()))
     return _lib
 
 

@@ -114,7 +114,7 @@ def _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual,
         raise ValueError(f"the bfloat16 kernel takes C_in a multiple of 16, "
                          f"got {cin}")
     lib = _build.load_library()
-    ws = stats_workspace(lib, x)
+    ws, tickets = stats_workspace(lib, x, num_groups)
     ps = _f32_or_none(pre_scale, (b, cin), "pre_scale")
     pb = _f32_or_none(pre_bias, (b, cin), "pre_bias")
     cb = None if bias is None else bias.float().contiguous()
@@ -126,7 +126,7 @@ def _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual,
     err = lib.sr3_gn_silu_conv3x3(
         x.data_ptr(), ptr(ps), ptr(pb), gamma.data_ptr(), beta.data_ptr(),
         wk.data_ptr(), ptr(cb), ptr(residual), y.data_ptr(), ws.data_ptr(),
-        b, h, w, cin, cout, num_groups, float(eps),
+        tickets.data_ptr(), b, h, w, cin, cout, num_groups, float(eps),
         _build.dtype_code(x), _build.stream_of(x),
     )
     _build.check(err, "sr3_gn_silu_conv3x3")

@@ -24,6 +24,8 @@ memory.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from sr3_tpu_torch.ops import _build
@@ -32,6 +34,8 @@ counter = _build.LaunchCount("group_norm")
 stats_counter = _build.LaunchCount("gn_stats")
 # maps of at least this many pixels take the statistics route (K3)
 STATS_MIN_HW = 256 * 256
+# channels K1's and K2's GroupNorm kernels take (kGnMaxChannels, common.cuh)
+KERNEL_MAX_CHANNELS = 1024
 
 
 def check_channels_last(x, name="x"):
@@ -41,15 +45,65 @@ def check_channels_last(x, name="x"):
             f"(got shape {tuple(x.shape)}, strides {tuple(x.stride())})")
 
 
-def stats_workspace(lib, x):
-    """Float32 scratch of the kernels' GroupNorm statistics of x (B,C,H,W),
-    sized by the kernel library."""
+# int32 ticket counters of K1's statistics launch, one tensor per (device,
+# stream), zeroed once: the kernel leaves every counter it uses at 0 again
+_tickets = {}
+
+
+def stats_workspace(lib, x, num_groups):
+    """(workspace, tickets) of K1's GroupNorm statistics of x (B,C,H,W):
+    float32 scratch sized by the kernel library (per-channel mult / add and
+    the blocks' sums) and B*C int32 ticket counters that are 0 between
+    launches. The counters are kept per device and stream: launches on one
+    stream run in order, and launches on two streams never share one."""
     b, c, h, w = x.shape
-    n = lib.sr3_gn_workspace_floats(b, h * w, c)
+    n = lib.sr3_gn_workspace_floats(b, h * w, c, num_groups,
+                                    _build.dtype_code(x))
     if n < 0:
-        raise ValueError(f"the GroupNorm kernels do not take {c} channels "
-                         f"(kGnMaxChannels, csrc/common.cuh)")
-    return torch.empty(n, dtype=torch.float32, device=x.device)
+        raise ValueError(f"the GroupNorm kernels do not take {c} channels in "
+                         f"{num_groups} groups at batch {b} (kGnMaxChannels, "
+                         f"csrc/common.cuh)")
+    key = (x.device, _build.stream_of(x))
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < b * c:
+        tickets = torch.zeros(max(b * c, 1 << 14), dtype=torch.int32,
+                              device=x.device)
+        _tickets[key] = tickets
+    return torch.empty(n, dtype=torch.float32, device=x.device), tickets
+
+
+# fields of the C library's GroupNorm plan (sr3_gn_plan)
+PLAN_FIELDS = ("vec", "cb", "threads", "splits", "per", "resident",
+               "smem_bytes", "sms")
+
+
+def gn_plan(shape, num_groups, dtype, route="cluster"):
+    """The kernels' plan for a (B, C, H, W) map of ``dtype`` in
+    ``num_groups`` groups, from the C library on the current device:
+    ``route`` "cluster" (K2: ``splits`` is the cluster size) or "stats"
+    (K1's statistics launch); a dict of PLAN_FIELDS."""
+    b, c, h, w = shape
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    code = _build.DTYPE_CODES[dtype]
+    err = _build.load_library().sr3_gn_plan(
+        b, h * w, c, num_groups, code, 0 if route == "cluster" else 1, out)
+    if err:
+        raise ValueError(f"the GroupNorm kernels do not take {tuple(shape)} "
+                         f"in {num_groups} groups")
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def cluster_launches(reset=False):
+    """K2's launches since the last reset, by (dtype, cluster size,
+    resident), those not 0; ``reset`` sets them to 0 after reading. Loads
+    the CUDA library."""
+    counts = (ctypes.c_longlong * 64)()
+    n = _build.load_library().sr3_group_norm_clusters(counts, int(reset))
+    if n != len(counts):
+        raise RuntimeError(f"the library reports {n} K2 launch counts, "
+                           f"expected {len(counts)}")
+    return {(("float32", "bfloat16")[i // 32], i % 16 + 1, bool(i // 16 % 2)):
+            k for i, k in enumerate(counts) if k}
 
 
 def _grouped(x, num_groups):
@@ -122,14 +176,16 @@ def _group_norm_fwd(x, weight, bias, num_groups, eps, swish):
     if x.device.type != "cuda":
         raise ValueError(f"group_norm runs on cpu or cuda, not {x.device}")
     b, c, h, w = x.shape
+    if c > KERNEL_MAX_CHANNELS:
+        raise ValueError(f"the GroupNorm kernel takes at most "
+                         f"{KERNEL_MAX_CHANNELS} channels, got {c}")
     lib = _build.load_library()
-    ws = stats_workspace(lib, x)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     gamma = weight.float().contiguous()
     beta = bias.float().contiguous()
     err = lib.sr3_group_norm(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-        ws.data_ptr(), b, h * w, c, num_groups, float(eps), int(swish),
+        b, h * w, c, num_groups, float(eps), int(swish),
         _build.dtype_code(x), _build.stream_of(x),
     )
     _build.check(err, "sr3_group_norm")

@@ -123,6 +123,13 @@ def _k1_inputs(gen, dtype, b, cin, cout, h, w, film):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,hw,groups,swish", [
     (2, 512, 16, 32, False), (1, 512, 8, 32, False), (2, 96, 12, 8, True),
+    # the 16->128 and 64->512 training sites, a ragged 10x10 map, a slice
+    # too large for a 16-block cluster's shared memory, and odd channels
+    (4, 64, 128, 32, True), (2, 512, 64, 16, False), (2, 512, 32, 16, True),
+    (2, 96, 10, 32, True), (1, 256, 128, 2, True), (3, 6, 7, 3, True),
+    # the attention pre-norms of both serving paths at batch 8
+    (8, 512, 16, 32, False), (8, 512, 8, 32, False), (8, 512, 64, 16, False),
+    (8, 512, 32, 16, False),
 ])
 def test_k2_matches_plain(gen, dtype, b, c, hw, groups, swish):
     x = 3 * torch.randn(b, c, hw, hw, device="cuda", generator=gen) + 1
@@ -130,10 +137,79 @@ def test_k2_matches_plain(gen, dtype, b, c, hw, groups, swish):
     s = 1 + 0.2 * torch.randn(c, device="cuda", generator=gen)
     t = 0.1 * torch.randn(c, device="cuda", generator=gen)
     n = groupnorm.counter.n
+    groupnorm.cluster_launches(reset=True)
     out = groupnorm.group_norm(x, s, t, groups, swish=swish)
     assert groupnorm.counter.n == n + 1
+    plan = groupnorm.gn_plan(x.shape, groups, dtype)
+    name = str(dtype).split(".")[-1]
+    assert groupnorm.cluster_launches() == {
+        (name, plan["splits"], bool(plan["resident"])): 1}
     ref = groupnorm.group_norm_plain(x, s, t, groups, swish=swish)
     assert rel(out, ref) <= TOL[dtype]["k2"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_kernels_are_bit_identical_across_calls(gen, dtype):
+    """K2 and K1 (its statistics: many blocks a slice at 512^2, folded by
+    the last one) give the same bits twice; K1's tickets are 0 after."""
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    x = (3 * torch.randn(2, 512, 64, 64, device="cuda", generator=gen) + 1)
+    x = x.to(dtype).contiguous(memory_format=CL)
+    s = 1 + 0.2 * torch.randn(512, device="cuda", generator=gen)
+    t = 0.1 * torch.randn(512, device="cuda", generator=gen)
+    a, b = (groupnorm.group_norm(x, s, t, 16, swish=True) for _ in range(2))
+    assert torch.equal(a.view(bits), b.view(bits))
+    args, kw = _k1_inputs(gen, dtype, 2, 64, 64, 512, 512, True)
+    a, b = (conv_fused.gn_silu_conv3x3(*args, **kw) for _ in range(2))
+    assert torch.equal(a.view(bits), b.view(bits))
+    assert groupnorm.gn_plan(args[0].shape, 8, dtype, "stats")["splits"] > 1
+    for tickets in groupnorm._tickets.values():
+        assert int(torch.count_nonzero(tickets)) == 0
+
+
+def test_k1_tickets_are_kept_per_stream(gen):
+    """K1 calls on two streams take two sets of ticket counters, give the
+    same bits, and leave both at 0."""
+    args, kw = _k1_inputs(gen, torch.bfloat16, 2, 64, 64, 512, 512, True)
+    assert groupnorm.gn_plan(args[0].shape, 8, torch.bfloat16,
+                             "stats")["splits"] > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    a = conv_fused.gn_silu_conv3x3(*args, **kw)
+    with torch.cuda.stream(side):
+        b = conv_fused.gn_silu_conv3x3(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    streams = {key[1] for key in groupnorm._tickets}
+    assert {torch.cuda.current_stream().cuda_stream,
+            side.cuda_stream} <= streams
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    for tickets in groupnorm._tickets.values():
+        assert int(torch.count_nonzero(tickets)) == 0
+
+
+def test_gn_plan_matches_the_cpu_emulation(gen):
+    """The C library's plans are the ones tests/test_torch_port_gn_cluster
+    emulates on the CPU (its mirror, at this card's SM count)."""
+    import test_torch_port_gn_cluster as mirror
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(b, h * h, c, g) for name in mirror.SITES
+              for b in (mirror.train_batch(name), 8)
+              for c, h, g, _ in mirror.SITES[name]]
+    shapes += [(2, 100, 96, 32), (1, 16384, 256, 2), (3, 49, 6, 3),
+               (2, 262144, 64, 16), (8, 64, 1024, 32), (2, 64, 40, 8)]
+    for route, plan in (("cluster", mirror.cluster_plan),
+                        ("stats", mirror.stats_plan)):
+        for dtype, elem in ((torch.float32, 4), (torch.bfloat16, 2)):
+            for b, hw, c, g in shapes:
+                got = groupnorm.gn_plan((b, c, hw, 1), g, dtype, route)
+                want = plan(b, hw, c, g, elem, sms)
+                keys = ["vec", "cb", "threads", "splits", "per",
+                        "smem_bytes"] + (["resident"] if route == "cluster"
+                                         else [])
+                assert got["sms"] == sms
+                assert {k: got[k] for k in keys} == \
+                    {k: want[k] for k in keys}, (route, dtype, b, hw, c, g)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
