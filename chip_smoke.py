@@ -89,13 +89,40 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      the same function, so not library_ms); K2 also at the 16->128 training
      site 4x64x128^2 with SiLU and the 64->512 serving site 8x512x64^2. The
      JSON line carries the first shape of each.
-After phase 17 the bf16 K1 tiles, and K2's (dtype, cluster size,
+The rest of the sampling surface (phases 18 and 19 run right after phase
+6, on its serving trainer; phase 3 also checks K1 and K2 at every site of
+the three models below, checked against their Blocks, K1 of the six-level
+model at batches 2, 4 and 8, and K4-K6 at (b, 256, 128) and (b, 16, 256)):
+ 18. strided chains: DDIM-50, DPM++-25 and the SDE DPM++-25 from the
+     T=2000 schedule through GroupedEvaluator.run_sr at batch 8, bf16;
+     counters zeroed before each; UNet forwards equal to the steps, finite
+     outputs; ms of a whole chain (median of 3), images/s, device ops per
+     UNet forward;
+ 19. -p val: evaluate_sr on 2 seeded images at T=10 with Metrics.save_img
+     replaced by a recorder (this script only: the card's machine has no
+     cv2 or Pillow); every file asked for at its shape, PSNR and SSIM equal
+     to those of the recorded arrays, every forward kernel launched;
+ 20. ddpm 16->128 (configs/sr_ddpm_16_128.json): float32 forward on the
+     card against the CPU at t = 1999 (FORWARD_TOL); run_sr of 2 images,
+     bf16, T=10; NEW_TRAIN_STEPS train steps at batch 4 through train_loop
+     (K1, K2, K4-K6 launched, finite losses, every parameter moved);
+ 21. unconditional 128^2 (configs/sample_sr3_128.json and the six-level
+     configs/sample_ddpm_128.json): float32 forward against the CPU;
+     run_uncond of 2 samples, bf16, T=10, every forward kernel launched;
+     for sample_ddpm_128 NEW_TRAIN_STEPS train steps and the median ms of a
+     batch-8 UNet step with a torch.profiler window (device ops per step);
+ 22. sample_ddpm_128 kernel timing: K4-K6 at (8, 256, 128) and
+     (8, 16, 256), K1 at 8x512x4^2->256, each beside its plain version,
+     SDPA (or cuDNN's conv alone) and its bound.
+After phase 22 the bf16 K1 tiles, and K2's (dtype, cluster size,
 residency), launched since phase 3 (the main paths and the timing) must
 all be ones that phase 3 checked.
 
 Then one JSON line with every kernel's route, source, the TPU kernel it
-replaces, launches in phase 12 (and on the other paths), max error and
-times, and last the line {"ok": true, "device": {...}}. Without a CUDA
+replaces, launches in phase 12 (and on the other paths: launches_* keys,
+each path's counters zeroed just before it), max error and times
+(timings_sample_ddpm_128: phase 22), and last the line {"ok": true,
+"device": {...}}. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 and prints no result.
 """
@@ -196,6 +223,39 @@ LONG_SHAPES = [(2, 4096, 512), (2, 1024, 512), (1, 16384, 256)]
 # remat on against remat off, float32, same seed and dropout draws, cuDNN's
 # deterministic algorithms: the same operations on the same values
 REMAT_TOL = 1e-5
+# The rest of the sampling surface: the ddpm 16->128 model (the same sites as
+# the sr3 one, time_mlp / mlp conditioning on float t), the unconditional
+# sr3 128^2 model (the same sites, 3 input channels) and the six-level
+# unconditional ddpm 128^2 model (26.4M parameters, maps down to 4x4,
+# attention at 16x16 with C 128 and in the 4x4 mid block with C 256)
+CONFIG_DDPM = os.path.join(ROOT, "configs", "sr_ddpm_16_128.json")
+CONFIG_UNCOND_SR3 = os.path.join(ROOT, "configs", "sample_sr3_128.json")
+CONFIG_DDPM_128 = os.path.join(ROOT, "configs", "sample_ddpm_128.json")
+# (Cin, Cout, H=W) of every K1 call of the sample_ddpm_128 UNet (checked as
+# K1_SHAPES is); phase 3 runs them at every batch of k1_batches
+K1_SHAPES_DDPM_128 = [
+    (64, 64, 128), (64, 64, 64), (64, 128, 32), (128, 128, 32),
+    (128, 128, 16), (128, 256, 8), (256, 256, 8), (256, 256, 4),
+    (512, 256, 4), (512, 256, 8), (384, 256, 8), (384, 128, 16),
+    (256, 128, 16), (256, 128, 32), (192, 128, 32), (192, 64, 64),
+    (128, 64, 64), (128, 64, 128), (64, 3, 128),
+]
+# its K2 calls (as K2_SITES): C 256 at 4x4 and C 128 at 16x16 among them
+K2_SITES_DDPM_128 = [(64, 128, True), (64, 64, True), (128, 32, True),
+                     (128, 16, True), (256, 8, True), (256, 4, True),
+                     (128, 16, False), (256, 4, False)]
+# (batch*heads, seq, head_dim) of its attention (16x16 at C 128, the 4x4
+# mid block at C 256: fewer rows than one tile) at the train batch, and of
+# K4 at the serving group of 2
+BWD_SHAPES_DDPM_128 = [(4, 256, 128), (4, 16, 256)]
+K4_SHAPES_DDPM_128 = [(256, 128), (16, 256)]
+# the strided chains on the 16->128 sr3 model, bf16, batch BATCH_TIME, from
+# the T=2000 schedule: (label, model.diffusion settings, UNet forwards)
+STRIDED = [("DDIM-50", {"sampler": "ddim", "sampler_steps": 50}, 50),
+           ("DPM++-25", {"sampler": "dpm++", "sampler_steps": 25}, 25),
+           ("SDE DPM++-25", {"sampler": "dpm++", "sampler_steps": 25,
+                             "eta": 1.0}, 25)]
+NEW_TRAIN_STEPS = 3
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -394,16 +454,24 @@ def kernel_phase(torch, errs):
     def record(kernel, dtype, label, out, ref):
         check(torch, errs, failures, kernel, dtype, label, out, ref)
 
-    for config, shapes in ((CONFIG, K1_SHAPES), (CONFIG_512, K1_SHAPES_512)):
+    for config, shapes in ((CONFIG, K1_SHAPES), (CONFIG_DDPM, K1_SHAPES),
+                           (CONFIG_UNCOND_SR3, K1_SHAPES),
+                           (CONFIG_512, K1_SHAPES_512),
+                           (CONFIG_DDPM_128, K1_SHAPES_DDPM_128)):
         sites = k1_sites(torch, config)
         if sorted(set(sites)) != sorted(shapes):
             failures.append(f"K1 shapes of {os.path.basename(config)}: the "
                             f"model's {sorted(set(sites))}")
     k1_cases = ([(BATCH_CHECK, *s) for s in K1_SHAPES]
                 + [(BATCH_CHECK_512, *s) for s in K1_SHAPES_512]
-                + K1_SERVING_512)
+                + K1_SERVING_512
+                + [(b, *s) for b in k1_batches(_load_opt(config=CONFIG_DDPM_128))
+                   for s in K1_SHAPES_DDPM_128])
     k2_cases = K2_EXTRA[:]
-    for config, sites in ((CONFIG, K2_SITES), (CONFIG_512, K2_SITES_512)):
+    for config, sites in ((CONFIG, K2_SITES), (CONFIG_DDPM, K2_SITES),
+                          (CONFIG_UNCOND_SR3, K2_SITES),
+                          (CONFIG_512, K2_SITES_512),
+                          (CONFIG_DDPM_128, K2_SITES_DDPM_128)):
         opt = _load_opt(config=config)
         model_sites = k2_sites(torch, config)
         if sorted(set(model_sites)) != sorted(sites):
@@ -447,13 +515,13 @@ def kernel_phase(torch, errs):
             record("group_norm", dn, label, out,
                    groupnorm.group_norm_plain(x, gw, gb, groups, swish=swish))
             del x, out
-        for seq, d in K4_SHAPES:
+        for seq, d in K4_SHAPES + K4_SHAPES_DDPM_128:
             q, k, v = (torch.randn(BATCH_CHECK, seq, d, device="cuda",
                                    generator=g).to(dtype) for _ in range(3))
             record("flash_attention_fwd", dn, f"{BATCH_CHECK}x{seq}x{d}",
                    attention.attention(q, k, v, d ** -0.5),
                    attention.attention_plain(q, k, v, d ** -0.5))
-        for bh, seq, d in BWD_SHAPES:
+        for bh, seq, d in BWD_SHAPES + BWD_SHAPES_DDPM_128:
             q, k, v = (torch.randn(bh, seq, d, device="cuda",
                                    generator=g).to(dtype) for _ in range(3))
             gr = torch.randn(bh, seq, d, device="cuda", generator=g)
@@ -511,6 +579,14 @@ def k2_cluster_phase(checked):
     if not taken or set(taken) - checked:
         raise AssertionError(f"K2 clusters launched but not checked: "
                              f"{sorted(set(taken) - checked)}")
+
+
+def k1_batches(opt):
+    """The batches at which the paths run K1 on the sample_ddpm_128 model:
+    2 (run_uncond's groups), the train batch and BATCH_TIME (the timed
+    step)."""
+    return sorted({BATCH_CHECK, opt["datasets"]["train"]["batch_size"],
+                   BATCH_TIME})
 
 
 def k2_batches(opt):
@@ -1365,10 +1441,11 @@ def _device_busy(torch, prof):
     return busy / 1000
 
 
-def _profile_steps(torch, step, n):
+def _profile_steps(torch, step, n, unet_steps=1):
     """A torch.profiler window over n calls of ``step``: wall and device
     busy ms per step (union of device intervals) and device time by kernel,
-    printed."""
+    printed; with ``unet_steps`` (the UNet forwards of one call, as in a
+    whole chain) also the device ops per UNet forward."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1387,7 +1464,10 @@ def _profile_steps(torch, step, n):
     n_dev = sum(k for _, k in by_kernel.values())
     print(f"  profiled {n} steps: wall {wall:.1f} ms/step, device busy "
           f"{busy:.1f} ms/step ({100 * busy / wall:.1f}%), {n_dev / n:.0f} "
-          f"device ops/step; device time per step by kernel:", flush=True)
+          f"device ops/step"
+          + (f" ({n_dev / n / unet_steps:.1f} per UNet forward)"
+             if unet_steps > 1 else "")
+          + "; device time per step by kernel:", flush=True)
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (t, k) in rows[:16]:
         print(f"    {t / 1000 / n:9.3f} ms  {k / n:7.1f}/step  {name[:90]}",
@@ -1560,6 +1640,37 @@ def gn_launch_phase(torch):
         raise AssertionError(f"GroupNorm launches: {failures}")
 
 
+def _time_entry(torch, name, shape, fn, plain, library, flops, nbytes):
+    """One kernel call ``fn`` beside its plain version and the library call
+    (None where there is none): CUDA-event ms and the profiler's device ms
+    of each, the kernel's device launches a call, and the least time the
+    card could take for ``flops`` bf16 operations and ``nbytes`` moved
+    (bound_ms). Printed; returns the record."""
+    fns = {"": fn, "plain_": plain, "library_": library}
+    t = {}
+    for key, f in fns.items():
+        t[key + "ms"] = None if f is None else _time_ms(torch, f, n=5)
+        t[key + "device_ms"] = None if f is None or not key else \
+            _device_ms(torch, f)
+    kernels = _device_by_kernel(torch, fn)
+    t["device_ms"] = _call_ms(kernels)
+    t["device_launches_per_call"] = sum(k for _, k in kernels.values())
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    bound_ms = 1000 * max(t_ops, t_bytes)
+    by = "operations" if t_ops > t_bytes else "bytes"
+    print(f"  {name} {shape}: device kernels a call: " + ", ".join(
+        f"{_short(k)} {ms:.4f} ms x{n}"
+        for k, (ms, n) in kernels.items()), flush=True)
+    show = lambda k: "none" if t[k] is None else f"{t[k]:.4f}"
+    print(f"  {name} {shape} bf16, ms (events / device): kernel "
+          f"{show('ms')} / {show('device_ms')}, plain {show('plain_ms')} / "
+          f"{show('plain_device_ms')}, library {show('library_ms')} / "
+          f"{show('library_device_ms')}; bound {bound_ms:.4f} ({by}; "
+          f"kernel device time {t['device_ms'] / bound_ms:.1f}x)",
+          flush=True)
+    return {**t, "bound_ms": bound_ms, "bound_by": by, "shape": shape}
+
+
 @phase("64->512 kernel timing")
 def kernel_timing_512_phase(torch):
     """One round of each kernel at a 64->512 training shape (bf16, batch 2)
@@ -1574,31 +1685,8 @@ def kernel_timing_512_phase(torch):
     dt, cl = torch.bfloat16, torch.channels_last
     out = {}
 
-    def entry(name, shape, fn, plain, library, flops, nbytes):
-        fns = {"": fn, "plain_": plain, "library_": library}
-        t = {}
-        for key, f in fns.items():
-            t[key + "ms"] = None if f is None else _time_ms(torch, f, n=5)
-            t[key + "device_ms"] = None if f is None or not key else \
-                _device_ms(torch, f)
-        kernels = _device_by_kernel(torch, fn)
-        t["device_ms"] = _call_ms(kernels)
-        t["device_launches_per_call"] = sum(k for _, k in kernels.values())
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        bound_ms = 1000 * max(t_ops, t_bytes)
-        by = "operations" if t_ops > t_bytes else "bytes"
-        out.setdefault(name, {**t, "bound_ms": bound_ms, "bound_by": by,
-                              "shape": shape})
-        print(f"  {name} {shape}: device kernels a call: " + ", ".join(
-            f"{_short(k)} {ms:.4f} ms x{n}"
-            for k, (ms, n) in kernels.items()), flush=True)
-        show = lambda k: "none" if t[k] is None else f"{t[k]:.4f}"
-        print(f"  {name} {shape} bf16, ms (events / device): kernel "
-              f"{show('ms')} / {show('device_ms')}, plain {show('plain_ms')} / "
-              f"{show('plain_device_ms')}, library {show('library_ms')} / "
-              f"{show('library_device_ms')}; bound {bound_ms:.4f} ({by}; "
-              f"kernel device time {t['device_ms'] / bound_ms:.1f}x)",
-              flush=True)
+    def entry(name, shape, *args):
+        out.setdefault(name, _time_entry(torch, name, shape, *args))
 
     b = 2
     args, kw = _k1_inputs(torch, g, b, 64, 64, 512, dt, True)
@@ -1712,6 +1800,351 @@ def _attention_entries(torch, g, entry, bh, seq, d):
           + 4 * q.numel())
 
 
+# ------------------------------------------- the rest of the sampling surface
+
+
+def _sr_items(torch, n, seed):
+    """n seeded 16->128 val items, HWC float32 in [-1, 1]: LR, SR its
+    bicubic upsampling (the condition), HR that plus noise."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    lr = torch.rand(n, 3, 16, 16, generator=g) * 2 - 1
+    sr = F.interpolate(lr, size=(128, 128), mode="bicubic",
+                       align_corners=False).clamp(-1, 1)
+    hr = (sr + 0.1 * torch.randn(sr.shape, generator=g)).clamp(-1, 1)
+    hwc = lambda t: t.permute(1, 2, 0).numpy()
+    return [{"LR": hwc(lr[i]), "SR": hwc(sr[i]), "HR": hwc(hr[i]), "Index": i}
+            for i in range(n)]
+
+
+def _forward_vs_cpu(torch, config):
+    """One float32 forward of ``config``'s full-width UNet (random seeded
+    weights), batch 1 at 128^2, on the card (kernels; counters zeroed just
+    before, every forward kernel must launch) against the same weights on
+    the CPU (plain versions), within FORWARD_TOL; conditioned on noise
+    level 0.5 (sr3) or on t = 1999, the top of the schedule (ddpm)."""
+    import copy
+
+    from sr3_tpu_torch.models.networks import count_params, define_G
+
+    gpu = define_G(_load_opt(dtype="float32", config=config), device="cuda",
+                   seed=0).denoise_fn
+    cpu = copy.deepcopy(gpu).cpu()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(1, gpu.in_channel, 128, 128, generator=g)
+    cond = torch.tensor([1999.0 if gpu.cond_mode == "ddpm" else 0.5])
+    for c in counters():
+        c.n = 0
+    with torch.inference_mode():
+        out_gpu = gpu(x.cuda(), cond.cuda()).cpu()
+        out_cpu = cpu(x, cond)
+    rel, absd = rel_err(out_gpu, out_cpu)
+    launches = forward_launches()
+    print(f"  {os.path.basename(config)}: UNet(cond_mode={gpu.cond_mode}) "
+          f"{count_params(gpu):,d} parameters, {gpu.in_channel} input "
+          f"channels; forward B=1 float32 at condition {cond.item():g}, card "
+          f"vs CPU: rel {rel:.3e} abs {absd:.3e} tol {FORWARD_TOL:g}; "
+          f"launches {launches}", flush=True)
+    if not (rel <= FORWARD_TOL and torch.isfinite(out_gpu).all()):
+        raise AssertionError(f"full-width forward: rel {rel} > {FORWARD_TOL}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+
+
+def _serving_trainer(config):
+    """The val-phase Trainer of ``config`` (bf16 sampling copy) with the
+    T=10 val schedule set."""
+    from sr3_tpu_torch.training.trainer import create_model
+
+    opt = _load_opt(val_steps=10, config=config)
+    trainer = create_model(opt)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
+                                   schedule_phase="val")
+    return trainer
+
+
+def _frames_checked(torch, trainer, run, label):
+    """``run()``'s process frames (one (1 + n_snap, 128, 128, 3) array an
+    image) with the counters zeroed just before: finite, every forward
+    kernel launched. Returns the launches."""
+    import numpy as np
+
+    from sr3_tpu_torch.models.diffusion import _snapshot_count
+
+    for c in counters():
+        c.n = 0
+    t0 = time.perf_counter()
+    frames = list(run())
+    dt = time.perf_counter() - t0
+    launches = forward_launches()
+    n_snap, _ = _snapshot_count(trainer.sched.num_timesteps)
+    print(f"  {label} {trainer.netG.dtype}: {len(frames)} images, frames "
+          f"{frames[0].shape}, T={trainer.sched.num_timesteps}, {dt:.2f} s; "
+          f"launches {launches}", flush=True)
+    for f in frames:
+        if f.shape != (1 + n_snap, 128, 128, 3) or not np.isfinite(f).all():
+            raise AssertionError(f"{label}: frames {f.shape}, finite "
+                                 f"{np.isfinite(f).all()}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+    return launches
+
+
+def _train_new(torch, config, seed):
+    """NEW_TRAIN_STEPS full-width train steps of ``config`` at its batch
+    (bf16, dropout 0.2) through train_loop, on seeded synthetic batches;
+    K1, K2, K4, K5 and K6 must launch."""
+    import numpy as np
+
+    trainer, opt = _train_trainer(torch, config, NEW_TRAIN_STEPS)
+    b = opt["datasets"]["train"]["batch_size"]
+    print(f"  train-phase Trainer, UNet(cond_mode="
+          f"{trainer.diffusion.cond_mode}), conditional "
+          f"{trainer.conditional}, compute {trainer.netG.dtype}, batch {b}, "
+          f"dropout {opt['model']['unet']['dropout']}", flush=True)
+    loader = _synthetic_batches(np, NEW_TRAIN_STEPS, b, seed=seed)
+    return _train_loop_checked(torch, trainer, opt, loader, KERNELS_16_128)
+
+
+@phase("ddpm 16->128")
+def ddpm_phase(torch):
+    """configs/sr_ddpm_16_128.json at full width: the float32 forward
+    against the CPU; GroupedEvaluator.run_sr on 2 images (bf16, T=10,
+    group of 2); NEW_TRAIN_STEPS train steps at batch 4."""
+    from sr3_tpu_torch.training.evaluation import GroupedEvaluator
+
+    _forward_vs_cpu(torch, CONFIG_DDPM)
+    trainer = _serving_trainer(CONFIG_DDPM)
+    items = _sr_items(torch, 2, seed=20)
+    ev = GroupedEvaluator(trainer, group_size=2)
+    serving = _frames_checked(
+        torch, trainer,
+        lambda: (f for _, f in ev.run_sr(iter(items), continous=True)),
+        "run_sr(continous=True) ddpm")
+    del trainer, ev
+    return {"serving": serving, "train": _train_new(torch, CONFIG_DDPM, 21)}
+
+
+@phase("unconditional 128^2")
+def uncond_phase(torch):
+    """configs/sample_sr3_128.json and configs/sample_ddpm_128.json (the
+    six-level model) at full width: the float32 forward against the CPU;
+    GroupedEvaluator.run_uncond of 2 samples (bf16, T=10, group of 2); for
+    sample_ddpm_128 NEW_TRAIN_STEPS train steps at batch 4, then the median
+    ms of a batch-8 UNet step (p_sample_step of the T=2000 chain) and a
+    torch.profiler window over it."""
+    import numpy as np
+
+    from sr3_tpu_torch.models.schedule import make_schedule
+    from sr3_tpu_torch.training.evaluation import GroupedEvaluator
+
+    out = {}
+    for config, key in ((CONFIG_UNCOND_SR3, "sample_sr3_128"),
+                        (CONFIG_DDPM_128, "sample_ddpm_128")):
+        _forward_vs_cpu(torch, config)
+        trainer = _serving_trainer(config)
+        ev = GroupedEvaluator(trainer, group_size=2)
+        out[key + "_serving"] = _frames_checked(
+            torch, trainer, lambda: ev.run_uncond(2, continous=True),
+            f"run_uncond(continous=True) {key}")
+        if config != CONFIG_DDPM_128:
+            del trainer, ev
+            continue
+        sched = make_schedule(trainer.opt["model"]["beta_schedule"]["val"]
+                              | {"n_timestep": 2000}, "cuda")
+        net = trainer._eval_params()
+        gd = torch.Generator(device="cuda").manual_seed(25)
+        img = torch.randn(BATCH_TIME, 3, 128, 128, device="cuda",
+                          generator=gd)
+        steps = iter(range(1999, -1, -1))
+        step = lambda: trainer.diffusion.p_sample_step(
+            net, sched, img, next(steps), None, generator=gd)
+        with torch.inference_mode():
+            ms = _time_each(torch, step, 10)
+            step_ms = float(np.median(ms))
+            print(f"  UNet step (p_sample_step) {key} B={BATCH_TIME} "
+                  f"{net.dtype}: median {step_ms:.3f} ms/step over {len(ms)} "
+                  f"steps (min {min(ms):.3f}, max {max(ms):.3f}); 2000-step "
+                  f"throughput extrapolated "
+                  f"{BATCH_TIME / (2000 * step_ms / 1000):.4f} img/s",
+                  flush=True)
+            _profile_steps(torch, step, 2)
+        del trainer, ev, net, img
+        out[key + "_train"] = _train_new(torch, config, 26)
+    return out
+
+
+@phase("strided chains")
+def strided_phase(torch, trainer):
+    """DDIM-50, DPM++-25 and the SDE DPM++-25 (STRIDED) on the 16->128 sr3
+    serving trainer (bf16) from the T=2000 schedule, through
+    GroupedEvaluator.run_sr of BATCH_TIME images in one group: counters
+    zeroed just before each chain; its UNet forwards (K1 launches over the
+    K1 calls of one forward) must equal its steps and its outputs be
+    finite. Then the wall ms of a whole chain (median of 3 more runs),
+    images/s, and a torch.profiler window over one more (device ops per
+    UNet forward)."""
+    import numpy as np
+
+    from sr3_tpu_torch.training.evaluation import GroupedEvaluator
+
+    opt = trainer.opt
+    diff_opt = opt["model"]["diffusion"]
+    saved = dict(diff_opt)
+    trainer.set_new_noise_schedule(
+        opt["model"]["beta_schedule"]["val"] | {"n_timestep": 2000},
+        schedule_phase="strided")
+    items = _sr_items(torch, BATCH_TIME, seed=22)
+    ev = GroupedEvaluator(trainer, group_size=BATCH_TIME, base_seed=23)
+    run = lambda: [o for _, o in ev.run_sr(iter(items))]
+    k1_per_forward = len(k1_sites(torch, CONFIG))
+    out = {}
+    try:
+        for label, knobs, steps in STRIDED:
+            diff_opt.clear()
+            diff_opt.update(saved, **knobs)
+            for c in counters():
+                c.n = 0
+            outs = run()
+            launches = forward_launches()
+            forwards = launches["gn_silu_conv3x3"] / k1_per_forward
+            finite = all(np.isfinite(o).all() for o in outs)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                times.append(time.perf_counter() - t0)
+            chain_s = float(np.median(times))
+            print(f"  {label} ({knobs}) B={BATCH_TIME} {trainer.netG.dtype}, "
+                  f"T=2000: {forwards:g} UNet forwards (want {steps}), "
+                  f"finite {finite}; launches {launches}; whole chain median "
+                  f"{1000 * chain_s:.1f} ms of 3 (min {1000 * min(times):.1f}, "
+                  f"max {1000 * max(times):.1f}), {BATCH_TIME / chain_s:.3f} "
+                  f"images/s", flush=True)
+            with torch.inference_mode():
+                _profile_steps(torch, run, 1, unet_steps=steps)
+            if forwards != steps or not finite or len(outs) != BATCH_TIME:
+                raise AssertionError(f"{label}: {forwards} forwards, finite "
+                                     f"{finite}")
+            out[label] = launches
+    finally:
+        diff_opt.clear()
+        diff_opt.update(saved)
+        trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
+                                       schedule_phase="val")
+    return out
+
+
+@phase("-p val")
+def val_phase(torch, trainer):
+    """evaluate_sr (what ``python -m sr3_tpu_torch.sr -p val`` runs) on 2
+    seeded synthetic 16->128 images with the serving trainer (bf16, T=10),
+    counters zeroed just before. The card's machine has neither cv2 nor
+    Pillow, so here (in this script only) Metrics.save_img is replaced by a
+    recorder of each array it is asked to write: every file of the
+    evaluation must be asked for, at its shape, and the PSNR and SSIM that
+    evaluate_sr returns must equal those computed from the recorded sr /
+    hr arrays."""
+    import tempfile
+
+    import numpy as np
+
+    import sr3_tpu_torch.utils.metrics as Metrics
+    from sr3_tpu_torch.models.diffusion import _snapshot_count
+    from sr3_tpu_torch.training.evaluation import evaluate_sr
+
+    opt = trainer.opt
+    items = _sr_items(torch, 2, seed=24)
+    written = {}
+
+    def record(img, path):
+        written[os.path.basename(path)] = np.array(img)
+
+    save_img, results = Metrics.save_img, opt["path"]["results"]
+    with tempfile.TemporaryDirectory() as tmp:
+        opt["path"]["results"] = tmp
+        Metrics.save_img = record
+        try:
+            for c in counters():
+                c.n = 0
+            psnr, ssim = evaluate_sr(trainer, items, opt, current_step=0,
+                                     current_epoch=0)
+            launches = forward_launches()
+        finally:
+            Metrics.save_img = save_img
+            opt["path"]["results"] = results
+    want = {f"0_{i}_{tag}.png" for i in (1, 2)
+            for tag in ("sr_process", "sr", "hr", "lr", "inf")}
+    shapes = {n: (a.shape, str(a.dtype)) for n, a in sorted(written.items())}
+    pairs = [(written[f"0_{i}_sr.png"], written[f"0_{i}_hr.png"])
+             for i in (1, 2)]
+    ref_psnr = sum(Metrics.calculate_psnr(a, b) for a, b in pairs) / 2
+    ref_ssim = sum(Metrics.calculate_ssim(a, b) for a, b in pairs) / 2
+    print(f"  evaluate_sr {trainer.netG.dtype}, T="
+          f"{trainer.sched.num_timesteps}: PSNR {psnr:.4f} SSIM {ssim:.4f} "
+          f"(from the recorded arrays {ref_psnr:.4f}, {ref_ssim:.4f}); "
+          f"files {shapes}; launches {launches}", flush=True)
+    n_snap, _ = _snapshot_count(trainer.sched.num_timesteps)
+    grid = Metrics.tensor2img(np.zeros((1 + n_snap, 128, 128, 3))).shape
+    want_shape = {"sr_process": grid, "lr": (16, 16, 3)}
+    ok_shapes = all(
+        a.dtype == np.uint8
+        and a.shape == want_shape.get(n[4:-4], (128, 128, 3))
+        for n, a in written.items())
+    if set(written) != want or not ok_shapes:
+        raise AssertionError(f"evaluate_sr wrote {shapes}, want {sorted(want)}")
+    if (psnr, ssim) != (ref_psnr, ref_ssim):
+        raise AssertionError(f"PSNR / SSIM {psnr}, {ssim} against "
+                             f"{ref_psnr}, {ref_ssim}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+    return launches
+
+
+@phase("sample_ddpm_128 kernel timing")
+def kernel_timing_ddpm_128_phase(torch):
+    """At BATCH_TIME, bf16: K4 (with its logsumexp), K5 and K6 at the
+    six-level model's attention (8, 256, 128) (16x16 at C 128) and
+    (8, 16, 256) (the 4x4 mid block), and K1 at its 4x4 up-path site
+    8x512x4^2->256 (+FiLM+residual), each beside its plain version, the
+    library call where there is one (SDPA; beside K1 cuDNN's conv alone,
+    not the same function) and its bound."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from sr3_tpu_torch.ops import conv_fused
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    out = {}
+
+    def entry(name, shape, *args):
+        out.setdefault(name, {})[shape] = _time_entry(torch, name, shape,
+                                                      *args)
+
+    b, cin, cout, hw = BATCH_TIME, 512, 256, 4
+    args, kw = _k1_inputs(torch, g, b, cin, cout, hw, torch.bfloat16, True)
+    px = b * hw * hw
+    shape = f"{b}x{cin}x{hw}x{hw}->{cout} +film+residual"
+    entry("gn_silu_conv3x3", shape,
+          functools.partial(conv_fused.gn_silu_conv3x3, *args, **kw),
+          functools.partial(conv_fused.gn_silu_conv3x3_plain, *args, **kw),
+          None, 2 * px * cin * cout * 9,
+          2 * (px * cin + 2 * px * cout + cout * cin * 9))
+    x, w, cb = args[0], args[3], args[4].to(torch.bfloat16)
+    conv = lambda: F.conv2d(x, w, cb, padding=1)
+    alone = {"cudnn_conv_alone_ms": _time_ms(torch, conv, n=5),
+             "cudnn_conv_alone_device_ms": _device_ms(torch, conv)}
+    out["gn_silu_conv3x3"][shape].update(alone)
+    print(f"  cuDNN F.conv2d alone {b}x{cin}x{hw}x{hw}->{cout}, ms (events "
+          f"/ device): {alone['cudnn_conv_alone_ms']:.4f} / "
+          f"{alone['cudnn_conv_alone_device_ms']:.4f}", flush=True)
+    for _, seq, d in BWD_SHAPES_DDPM_128:
+        _attention_entries(torch, g, entry, b, seq, d)
+    return out
+
+
 def main():
     import torch
 
@@ -1728,6 +2161,8 @@ def main():
         trainer = model_phase(torch)
         serving = serving_phase(torch, trainer)
         times = timing_phase(torch, trainer)
+        strided = strided_phase(torch, trainer)
+        val = val_phase(torch, trainer)
         del trainer
         trainer, launches_128 = training_phase(torch)
         grad_check_phase(torch)
@@ -1744,6 +2179,10 @@ def main():
         del trainer
         serving_512 = serving_512_phase(torch)
         timings = kernel_timing_512_phase(torch)
+        # the rest of the sampling surface: ddpm, unconditional
+        ddpm = ddpm_phase(torch)
+        uncond = uncond_phase(torch)
+        timings_ddpm_128 = kernel_timing_ddpm_128_phase(torch)
         k1_tile_phase(checked_tiles)
         k2_cluster_phase(checked_clusters)
     except Exception:  # report any phase's failure, print no result
@@ -1761,7 +2200,16 @@ def main():
             "launches_16_128_train": launches_128.get(name, 0),
             "launches_16_128_serving": serving.get(name, 0),
             "launches_64_512_serving": serving_512.get(name, 0),
+            "launches_16_128_val": val.get(name, 0),
+            "launches_ddpm_16_128_serving": ddpm["serving"].get(name, 0),
+            "launches_ddpm_16_128_train": ddpm["train"].get(name, 0),
+            **{f"launches_{k}": v.get(name, 0) for k, v in uncond.items()},
+            **{"launches_16_128_" + label.lower().replace(" ", "_")
+               .replace("+", "p").replace("-", "_"): v.get(name, 0)
+               for label, v in strided.items()},
         }
+        if name in timings_ddpm_128:
+            entry["timings_sample_ddpm_128"] = timings_ddpm_128[name]
         if name in times:
             entry["ms_16_128"], entry["plain_ms_16_128"] = times[name]
         kernels.append(entry)

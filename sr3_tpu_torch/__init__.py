@@ -3,7 +3,7 @@
 It sits beside the JAX package, which stays the reference: the same module
 names, the same reference state_dict names, NHWC memory (logical NCHW
 tensors in ``torch.channels_last``), and hand-written sm_90a kernels in
-``csrc/`` for the three TPU kernels of the SR3 sampling path. It imports
-torch and never jax; its numpy-only host code (config, metrics, dataset,
-checkpoint key map) is imported from ``sr3_tpu``.
+``csrc/`` for the six TPU kernels. It imports torch and never jax, and
+nothing of ``sr3_tpu``: it keeps its own copies of the numpy-only host code
+it needs (config, metrics, dataset, checkpoint key map).
 """

@@ -1,9 +1,10 @@
 """Network factory: config dict -> GaussianDiffusion over a UNet.
 
 Counterpart of ``sr3_tpu/models/networks.py`` (``define_G``,
-``count_params``; ``resolve_dtype`` lives in ``utils/runtime.py``). The UNet
-is built with a seeded init on the CPU, then moved to the device in
-``torch.channels_last`` memory with float32 parameters. The init follows
+``count_params``; ``resolve_dtype`` lives in ``utils/runtime.py``).
+``model.which_model_G`` ('sr3' or 'ddpm') is the ``cond_mode`` of both.
+The UNet is built with a seeded init on the CPU, then moved to the device
+in ``torch.channels_last`` memory with float32 parameters. The init follows
 the JAX package's: with ``phase == "train"`` every Conv2d and Linear weight
 is orthogonal with gain 1 (flax's ``orthogonal()``), otherwise
 lecun-normal (flax's default ``lecun_normal``: a normal truncated at two
@@ -28,9 +29,7 @@ from sr3_tpu_torch.utils.runtime import resolve_device, resolve_dtype
 
 def define_G(opt, device=None, seed=0) -> GaussianDiffusion:
     model_opt = opt["model"]
-    cond_mode = model_opt["which_model_G"]
-    if cond_mode != "sr3":
-        raise NotImplementedError(f"which_model_G {cond_mode!r} is not ported yet")
+    cond_mode = model_opt["which_model_G"]  # 'sr3' | 'ddpm'
     unet_opt = model_opt["unet"]
     diff_opt = model_opt["diffusion"]
     device = torch.device(device) if device is not None else resolve_device()
@@ -50,6 +49,7 @@ def define_G(opt, device=None, seed=0) -> GaussianDiffusion:
             image_size=diff_opt["image_size"],
             dtype=resolve_dtype(model_opt.get("dtype"), device),
             remat=bool(unet_opt.get("remat", False)),
+            cond_mode=cond_mode,
         )
         init_weights(unet, "orthogonal" if opt.get("phase") == "train"
                      else "default")

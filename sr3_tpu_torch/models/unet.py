@@ -1,13 +1,20 @@
-"""Epsilon-prediction UNet, sr3 conditioning (torch.nn, channels_last).
+"""Epsilon-prediction UNet (torch.nn, channels_last).
 
-Counterpart of ``sr3_tpu/models/unet.py`` in ``cond_mode='sr3'``: continuous
-noise-level input with the WaveGrad positional encoding, additive FiLM
-injected between the two Blocks of each ResnetBlock (the JAX package's
-network factory never turns on its affine variant), single-head attention.
-Module names follow the reference state_dict that
+Counterpart of ``sr3_tpu/models/unet.py``, with its ``cond_mode`` switch:
+
+- ``'sr3'``: continuous noise-level input (sqrt-gamma), additive FiLM
+  injected between the two Blocks of each ResnetBlock;
+- ``'ddpm'``: float timestep input, the embedding through SiLU (in float32)
+  and a Linear per ResnetBlock, added at the same place.
+
+Both run the same positional encoding in float32, single-head attention,
+and no affine FiLM variant (the JAX package's network factory never turns it
+on). Module names follow the reference state_dict that
 ``sr3_tpu_torch.utils.torch_compat.build_key_map`` enumerates (``downs.{i}``,
-``mid.{i}``, ``ups.{i}``, ``noise_level_mlp.{1,3}``, ``final_conv``), so
-reference ``.pth`` files and exported JAX weights load with ``strict=True``.
+``mid.{i}``, ``ups.{i}``, ``final_conv``; ``noise_level_mlp.{1,3}`` and
+``noise_func.noise_func.0`` in sr3 mode, ``time_mlp.{1,3}`` and ``mlp.1`` in
+ddpm mode), so reference ``.pth`` files and exported JAX weights load with
+``strict=True``.
 
 Tensors are logical NCHW in ``torch.channels_last`` memory (physically NHWC,
 like the JAX package). The compute dtype is the input's: ``UNet.forward``
@@ -51,7 +58,8 @@ CL = torch.channels_last
 
 
 def positional_encoding(cond, dim):
-    """(b,) noise level -> (b, dim) [sin || cos], freq_i = 1e4^(-i/(dim/2))."""
+    """(b,) noise level or timestep -> (b, dim) [sin || cos] in float32,
+    freq_i = 1e4^(-i/(dim/2))."""
     count = dim // 2
     cond = cond.reshape(-1).float()
     step = torch.arange(count, dtype=torch.float32, device=cond.device) / count
@@ -126,10 +134,20 @@ class Block(nn.Module):
 
 
 class ResnetBlock(nn.Module):
+    """block1, the conditioning projection (sr3: ``noise_func``; ddpm:
+    ``mlp`` = SiLU on the float32 embedding, then Linear), block2 with that
+    projection as its pre-bias and the (1x1-projected) input as its
+    residual."""
+
     def __init__(self, dim, dim_out, noise_level_emb_dim=None, dropout=0.0,
-                 norm_groups=32):
+                 norm_groups=32, cond_mode="sr3"):
         super().__init__()
-        self.noise_func = FeatureWiseAffine(noise_level_emb_dim, dim_out)
+        self.cond_mode = cond_mode
+        if cond_mode == "ddpm":
+            self.mlp = nn.Sequential(nn.SiLU(),
+                                     nn.Linear(noise_level_emb_dim, dim_out))
+        else:
+            self.noise_func = FeatureWiseAffine(noise_level_emb_dim, dim_out)
         self.block1 = Block(dim, dim_out, groups=norm_groups)
         self.block2 = Block(dim_out, dim_out, groups=norm_groups,
                             dropout=dropout)
@@ -138,9 +156,13 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x, emb, generator=None):
         h = self.block1(x)
+        if self.cond_mode == "ddpm":
+            pre_bias = _linear(self.mlp[1], F.silu(emb.float()).to(emb.dtype))
+        else:
+            pre_bias = self.noise_func(emb)
         skip = (_conv(self.res_conv, x)
                 if isinstance(self.res_conv, nn.Conv2d) else x)
-        return self.block2(h, pre_bias=self.noise_func(emb), residual=skip,
+        return self.block2(h, pre_bias=pre_bias, residual=skip,
                            generator=generator)
 
 
@@ -169,11 +191,12 @@ class SelfAttention(nn.Module):
 
 class ResnetBlocWithAttn(nn.Module):
     def __init__(self, dim, dim_out, *, noise_level_emb_dim=None,
-                 norm_groups=32, dropout=0.0, with_attn=False):
+                 norm_groups=32, dropout=0.0, with_attn=False,
+                 cond_mode="sr3"):
         super().__init__()
         self.res_block = ResnetBlock(
             dim, dim_out, noise_level_emb_dim, norm_groups=norm_groups,
-            dropout=dropout)
+            dropout=dropout, cond_mode=cond_mode)
         self.attn = (SelfAttention(dim_out, norm_groups=norm_groups)
                      if with_attn else None)
 
@@ -228,16 +251,21 @@ class Upsample(nn.Module):
 
 
 class UNet(nn.Module):
-    """The denoiser backbone. forward(x (b, in_channel, h, w), noise level
-    (b,), dropout generator) -> eps (b, out_channel, h, w) float32,
+    """The denoiser backbone. forward(x (b, in_channel, h, w), condition
+    (b,): the sqrt-gamma noise level (sr3) or the float timestep (ddpm),
+    dropout generator) -> eps (b, out_channel, h, w) float32,
     channels_last. Dropout is active in training mode only; ``remat``
     recomputes each ResnetBlocWithAttn in the backward."""
 
     def __init__(self, in_channel=6, out_channel=3, inner_channel=32,
                  norm_groups=32, channel_mults=(1, 2, 4, 8, 8), attn_res=(8,),
                  res_blocks=3, dropout=0.0, image_size=128,
-                 dtype=torch.float32, remat=False):
+                 dtype=torch.float32, remat=False, cond_mode="sr3"):
         super().__init__()
+        if cond_mode not in ("sr3", "ddpm"):
+            raise ValueError(f"cond_mode must be 'sr3' or 'ddpm', got "
+                             f"{cond_mode!r}")
+        self.cond_mode = cond_mode
         self.remat = remat
         self.in_channel = in_channel
         self.inner_channel = inner_channel
@@ -248,12 +276,16 @@ class UNet(nn.Module):
         self.dtype = dtype
 
         ic = inner_channel
-        self.noise_level_mlp = nn.Sequential(
+        cond_mlp = nn.Sequential(
             PositionalEncoding(ic), nn.Linear(ic, ic * 4), nn.SiLU(),
             nn.Linear(ic * 4, ic))
+        if cond_mode == "ddpm":
+            self.time_mlp = cond_mlp
+        else:
+            self.noise_level_mlp = cond_mlp
         rba = lambda dim, dim_out, with_attn: ResnetBlocWithAttn(
             dim, dim_out, noise_level_emb_dim=ic, norm_groups=norm_groups,
-            dropout=dropout, with_attn=with_attn)
+            dropout=dropout, with_attn=with_attn, cond_mode=cond_mode)
 
         num_mults = len(self.channel_mults)
         pre_channel = ic
@@ -294,7 +326,8 @@ class UNet(nn.Module):
         if x.shape[1] != self.in_channel:
             raise ValueError(f"expected {self.in_channel} input channels "
                              f"(NCHW), got {tuple(x.shape)}")
-        mlp = self.noise_level_mlp
+        mlp = (self.time_mlp if self.cond_mode == "ddpm"
+               else self.noise_level_mlp)
         e = mlp[0](noise_level).to(self.dtype)
         emb = _linear(mlp[3], F.silu(_linear(mlp[1], e)))
 

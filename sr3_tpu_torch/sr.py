@@ -1,13 +1,16 @@
-"""Super-resolution training entry point of the port, CLI-compatible with
-the root sr.py's train phase.
+"""Super-resolution train / val entry point of the port, CLI-compatible
+with the root sr.py.
 
   python -m sr3_tpu_torch.sr -p train -c configs/sr_sr3_16_128.json [-debug]
+  python -m sr3_tpu_torch.sr -p val -c <config with path.resume_state>
 
-Builds the train and val datasets, the trainer (resuming from
-``path.resume_state`` when set) and runs ``train_loop`` with in-training
-validation every ``train.val_freq`` steps. The device is CUDA;
-``SR3_PLATFORM=cpu`` runs it on the CPU. The val phase (``evaluate_sr``) is
-not ported yet.
+Builds the datasets and the trainer (weights from ``path.resume_state``
+when set). ``-p train`` runs ``train_loop`` with in-training validation
+every ``train.val_freq`` steps; ``-p val`` runs ``evaluate_sr`` over the val
+set with the val schedule: the process grid and sr / hr / lr / inf PNGs of
+every image, and the average PSNR and SSIM. ``model.diffusion.sampler``
+picks the chain (ancestral, DDIM or DPM-Solver++). The device is CUDA;
+``SR3_PLATFORM=cpu`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import logging
 
 import sr3_tpu_torch.utils.config as Config
 from sr3_tpu_torch.data.loader import create_dataloader, create_dataset
-from sr3_tpu_torch.training.evaluation import validate_in_train
+from sr3_tpu_torch.training.evaluation import (evaluate_sr,
+                                               validate_in_train)
 from sr3_tpu_torch.training.loops import train_loop
 from sr3_tpu_torch.training.trainer import create_model
 
@@ -27,7 +31,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", type=str,
                         default="configs/sr_sr3_16_128.json")
-    parser.add_argument("-p", "--phase", type=str, choices=["train"],
+    parser.add_argument("-p", "--phase", type=str, choices=["train", "val"],
                         default="train")
     parser.add_argument("-gpu", "--gpu_ids", type=str, default=None)
     parser.add_argument("-debug", "-d", action="store_true")
@@ -63,9 +67,10 @@ def main(argv=None):
         wandb.define_metric("epoch")
         wandb.define_metric("validation/*", step_metric="val_step")
 
-    train_set = create_dataset(opt["datasets"]["train"], "train")
-    train_loader = create_dataloader(train_set, opt["datasets"]["train"],
-                                     "train")
+    if opt["phase"] == "train":
+        train_set = create_dataset(opt["datasets"]["train"], "train")
+        train_loader = create_dataloader(train_set, opt["datasets"]["train"],
+                                         "train")
     val_set = create_dataset(opt["datasets"]["val"], "val")
     logger.info("Initial Dataset Finished")
 
@@ -75,8 +80,15 @@ def main(argv=None):
     if opt["path"]["resume_state"]:
         logger.info("Resuming training from epoch: {}, iter: {}.".format(
             trainer.begin_epoch, trainer.begin_step))
-    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
-                                   schedule_phase="train")
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"][opt["phase"]],
+                                   schedule_phase=opt["phase"])
+    if opt["phase"] == "val":
+        logger.info("Begin Model Evaluation.")
+        evaluate_sr(trainer, val_set, opt, current_step=trainer.begin_step,
+                    current_epoch=trainer.begin_epoch,
+                    wandb_logger=wandb_logger)
+        logger.info("End of Model Evaluation.")
+        return
 
     val_counter = itertools.count()
 

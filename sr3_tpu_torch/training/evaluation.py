@@ -1,9 +1,11 @@
 """Grouped inference over a stream of images.
 
-Counterpart of ``sr3_tpu/training/evaluation.py`` for the serving path and
-in-training validation (``per_image``, ``GroupedEvaluator.run_sr``,
-``_group_size``, ``infer_sr``, ``validate_in_train``).
-Images run ``G`` at a time through one batched reverse chain. Each image's
+Counterpart of ``sr3_tpu/training/evaluation.py``: ``per_image``,
+``GroupedEvaluator`` (``run_sr``, ``run_uncond``), ``_group_size``, the SR
+loops ``validate_in_train``, ``evaluate_sr`` and ``infer_sr``, and the
+unconditional ones ``sample_in_train`` and ``evaluate_uncond``.
+Images run ``G`` at a time through one batched reverse chain (the sampler
+that the config picks, ``Trainer._chain_fn``). Each image's
 whole noise stream comes from its own ``torch.Generator`` seeded from
 (base seed, global image index) -- the role ``fold_in`` plays in the JAX
 package -- so results do not depend on the group size.
@@ -73,6 +75,17 @@ class GroupedEvaluator:
         for j, it in enumerate(buf):
             yield it, out[j]
 
+    def run_uncond(self, n, continous=False):
+        """Yield n unconditional samples in order, (h,w,c) or the process
+        frames (S,h,w,c) when ``continous``; sample i draws from its own
+        generator, as image i does in ``run_sr``."""
+        done = 0
+        while done < n:
+            out = self.trainer.sample_batched(self._generators(done),
+                                              continous)
+            yield from out[:min(self.group, n - done)]
+            done += self.group
+
 
 def _group_size(opt, n_items=None):
     """datasets.val.batch_size if set; else min(8, n_items), or 1 at output
@@ -87,6 +100,55 @@ def _group_size(opt, n_items=None):
     if int(val_opt.get("r_resolution") or 0) >= 256:
         return 1
     return min(8, n_items) if n_items else 8
+
+
+def evaluate_sr(trainer, val_set, opt, current_step, current_epoch,
+                wandb_logger=None):
+    """Full SR evaluation (reference sr.py:175-241): full-schedule chains
+    with process frames; per image the process grid and sr / hr / lr / inf
+    PNGs; average PSNR and SSIM. Returns (avg_psnr, avg_ssim)."""
+    result_path = opt["path"]["results"]
+    os.makedirs(result_path, exist_ok=True)
+    log_eval = bool(wandb_logger and opt["log_eval"])
+
+    ev = GroupedEvaluator(trainer, _group_size(opt, len(val_set)))
+    avg_psnr, avg_ssim, idx = 0.0, 0.0, 0
+    for item, frames in ev.run_sr(per_image(val_set), continous=True):
+        idx += 1
+        hr_img = Metrics.tensor2img(item["HR"])
+        lr_img = Metrics.tensor2img(item["LR"])
+        fake_img = Metrics.tensor2img(item["SR"])
+        sr_img = Metrics.tensor2img(frames[-1])
+        Metrics.save_img(Metrics.tensor2img(frames),
+                         f"{result_path}/{current_step}_{idx}_sr_process.png")
+        for img, tag in ((sr_img, "sr"), (hr_img, "hr"), (lr_img, "lr"),
+                         (fake_img, "inf")):
+            Metrics.save_img(img,
+                             f"{result_path}/{current_step}_{idx}_{tag}.png")
+        eval_psnr = Metrics.calculate_psnr(sr_img, hr_img)
+        eval_ssim = Metrics.calculate_ssim(sr_img, hr_img)
+        avg_psnr += eval_psnr
+        avg_ssim += eval_ssim
+        if log_eval:
+            wandb_logger.log_eval_data(fake_img, sr_img, hr_img, eval_psnr,
+                                       eval_ssim)
+    if idx == 0:
+        logger.warning("Evaluation produced 0 images (empty val set at %s?).",
+                       opt["datasets"]["val"]["dataroot"])
+        return float("nan"), float("nan")
+    avg_psnr /= idx
+    avg_ssim /= idx
+    logger.info("# Validation # PSNR: {:.4e}".format(avg_psnr))
+    logger.info("# Validation # SSIM: {:.4e}".format(avg_ssim))
+    logging.getLogger("val").info(
+        "<epoch:{:3d}, iter:{:8,d}> psnr: {:.4e}, ssim: {:.4e}".format(
+            current_epoch, current_step, avg_psnr, avg_ssim))
+    if wandb_logger:
+        if log_eval:
+            wandb_logger.log_eval_table()
+        wandb_logger.log_metrics({"PSNR": float(avg_psnr),
+                                  "SSIM": float(avg_ssim)})
+    return avg_psnr, avg_ssim
 
 
 def infer_sr(trainer, dataset, opt, wandb_logger=None):
@@ -158,3 +220,43 @@ def validate_in_train(trainer, val_set, opt, current_step, current_epoch,
     if tb_logger:
         tb_logger.add_scalar("psnr", avg_psnr, current_step)
     return avg_psnr
+
+
+# ------------------------------------------------------------ unconditional
+
+
+def sample_in_train(trainer, sample_sum, opt, current_step, current_epoch,
+                    wandb_logger=None):
+    """In-training unconditional sampling (reference sample.py:100-128):
+    ``sample_sum`` val-schedule samples, one PNG each. Switches the schedule
+    train -> val -> train."""
+    result_path = os.path.join(opt["path"]["results"], str(current_epoch))
+    os.makedirs(result_path, exist_ok=True)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
+                                   schedule_phase="val")
+    ev = GroupedEvaluator(trainer, _group_size(opt, sample_sum))
+    for i, sample in enumerate(ev.run_uncond(sample_sum, continous=False)):
+        img = Metrics.tensor2img(sample)
+        Metrics.save_img(img, f"{result_path}/{current_step}_{i + 1}_sample.png")
+        if wandb_logger:
+            wandb_logger.log_image(f"sample_{i + 1}", img)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   schedule_phase="train")
+
+
+def evaluate_uncond(trainer, sample_sum, opt, current_step,
+                    wandb_logger=None):
+    """Unconditional eval phase (reference sample.py:132-162): the process
+    grid and the final sample of each of ``sample_sum`` draws."""
+    result_path = opt["path"]["results"]
+    os.makedirs(result_path, exist_ok=True)
+    ev = GroupedEvaluator(trainer, _group_size(opt, sample_sum))
+    for i, frames in enumerate(ev.run_uncond(sample_sum, continous=True)):
+        final = Metrics.tensor2img(frames[-1])
+        Metrics.save_img(
+            Metrics.tensor2img(frames),
+            f"{result_path}/{current_step}_{i + 1}_sample_process.png")
+        Metrics.save_img(final,
+                         f"{result_path}/{current_step}_{i + 1}_sample.png")
+        if wandb_logger:
+            wandb_logger.log_image(f"sample_{i + 1}", final)

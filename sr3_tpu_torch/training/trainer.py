@@ -6,9 +6,11 @@ Counterpart of ``sr3_tpu/training/trainer.py``: ``create_model``,
 the EMA; ``get_current_log``; ``finetune_norm``), checkpoints
 (``save_network`` / ``load_network`` with the reference's
 ``I{iter}_E{epoch}_{gen,opt}.pth`` names), the bf16 sampling copy
-(``_eval_params``) and ``test_batched``. Parameters are float32; the UNet
-computes in its own dtype (bf16 on CUDA). Every training draw comes from one
-``torch.Generator`` on the trainer's device, seeded from the config's seed.
+(``_eval_params``), the sampler choice (``_chain_fn``: ancestral, DDIM or
+DPM-Solver++) and ``test_batched`` / ``sample_batched``. Parameters are
+float32; the UNet computes in its own dtype (bf16 on CUDA). Every training
+draw comes from one ``torch.Generator`` on the trainer's device, seeded
+from the config's seed.
 Not ported yet: the bf16 Adam first moment (``train.optimizer.mu_dtype``)
 and the device-resident dataset with its fused K-step dispatch.
 """
@@ -180,6 +182,49 @@ class Trainer:
                 p.copy_(s)
         return self._eval_net
 
+    def _chain_fn(self, continuous):
+        """(net, condition image or shape, generators) -> reverse-chain
+        output, per the configured sampler: ``model.diffusion.sampler``
+        'ddpm' (the ancestral chain, default), 'ddim' or 'dpm++' with
+        ``sampler_steps`` (alias ``ddim_steps``; default 50 for DDIM, 25 for
+        DPM++) and ``eta``."""
+        diff_opt = (self.opt.get("model") or {}).get("diffusion") or {}
+        sampler = diff_opt.get("sampler") or "ddpm"
+        dpmpp = sampler in ("dpm++", "dpmpp")
+        steps = int(diff_opt.get("sampler_steps") or diff_opt.get("ddim_steps")
+                    or (25 if dpmpp else 50))
+        eta = float(diff_opt.get("eta") or 0.0)
+        diffusion, sched = self.diffusion, self.sched
+        if dpmpp:
+            chain = lambda net, x, gens: diffusion.dpmpp_sample_loop(
+                net, sched, x, gens, n_steps=steps, eta=eta,
+                continuous=continuous)
+        elif sampler == "ddim":
+            chain = lambda net, x, gens: diffusion.ddim_sample_loop(
+                net, sched, x, gens, n_steps=steps, eta=eta,
+                continuous=continuous)
+        elif sampler == "ddpm":
+            chain = lambda net, x, gens: diffusion.p_sample_loop(
+                net, sched, x, gens, continuous=continuous)
+        else:
+            raise ValueError(f"model.diffusion.sampler must be 'ddpm', "
+                             f"'ddim' or 'dpm++', got {sampler!r}")
+        return chain
+
+    def _run_chain(self, x_or_shape, generators, continous):
+        """The configured chain on the bf16 / EMA sampling network; host
+        numpy (G,h,w,c), or (G,S,h,w,c) process frames."""
+        chain = self._chain_fn(bool(continous))
+        net = self._eval_params()
+        with torch.inference_mode():
+            out = chain(net, x_or_shape, generators)
+        g = len(generators)
+        if continous:
+            out = out.reshape(-1, g, *out.shape[1:]).permute(1, 0, 3, 4, 2)
+        else:
+            out = out.permute(0, 2, 3, 1)
+        return out.float().cpu().numpy()
+
     def test_batched(self, xs, generators, continous=False):
         """Conditional SR over a group of images with per-image generators.
 
@@ -187,20 +232,19 @@ class Trainer:
         (G,S,h,w,c) process frames when ``continous``."""
         x = torch.as_tensor(np.asarray(xs, np.float32)).permute(0, 3, 1, 2)
         x = x.to(self.device).contiguous(memory_format=torch.channels_last)
-        net = self._eval_params()
-        with torch.inference_mode():
-            out = self.diffusion.p_sample_loop(
-                net, self.sched, x, generators, continuous=bool(continous))
-        g = x.shape[0]
-        if continous:
-            out = out.reshape(-1, g, *out.shape[1:]).permute(1, 0, 3, 4, 2)
-        else:
-            out = out.permute(0, 2, 3, 1)
-        return out.float().cpu().numpy()
+        return self._run_chain(x, generators, continous)
+
+    def sample_batched(self, generators, continous=False):
+        """Unconditional generation of one image per generator; returns as
+        ``test_batched``."""
+        d = self.diffusion
+        shape = (len(generators), d.channels, d.image_size, d.image_size)
+        return self._run_chain(shape, generators, continous)
 
     def print_network(self):
-        logger.info("Network G structure: UNet(cond_mode=sr3), with "
-                    "parameters: %s", "{:,d}".format(count_params(self.netG)))
+        logger.info("Network G structure: UNet(cond_mode=%s), with "
+                    "parameters: %s", self.diffusion.cond_mode,
+                    "{:,d}".format(count_params(self.netG)))
 
     # ---------------------------------------------------------- checkpoints
 

@@ -5,6 +5,7 @@ the same numbers:
 
 - ``tensor2img``: clamp [-1, 1] -> [0, 1] -> uint8 HWC; a 4-D input becomes
   a sqrt(n)-wide grid. Inputs are NHWC numpy arrays.
+- ``save_img`` / ``load_img``: RGB uint8 HWC to and from an image file.
 - PSNR on [0, 255] in float64.
 - SSIM with the MATLAB-convention 11x11 Gaussian window, sigma 1.5, 'valid'
   crop; through cv2 when it is installed, else scipy.
@@ -70,6 +71,18 @@ def save_img(img, img_path):
         from PIL import Image
 
         Image.fromarray(img).save(img_path)
+
+
+def load_img(path):
+    """Image file -> RGB uint8 HWC (cv2, else Pillow)."""
+    cv2 = _cv2()
+    if cv2 is not None:
+        return cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR),
+                            cv2.COLOR_BGR2RGB)
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
 
 
 def calculate_psnr(img1, img2):

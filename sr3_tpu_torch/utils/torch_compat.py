@@ -182,7 +182,7 @@ def unet_key_config(unet):
         in_channel=unet.in_channel, inner_channel=unet.inner_channel,
         channel_mults=unet.channel_mults, attn_res=unet.attn_res,
         res_blocks=unet.res_blocks, image_size=unet.image_size,
-        cond_mode="sr3",
+        cond_mode=unet.cond_mode,
     )
 
 

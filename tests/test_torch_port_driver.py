@@ -157,6 +157,7 @@ def test_port_imports_no_jax(tmp_path):
         import sr3_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             sr3_tpu_torch.__path__, "sr3_tpu_torch.")]
+        assert {{"sr3_tpu_torch.sample", "sr3_tpu_torch.eval"}} <= set(names)
         for name in names:
             importlib.import_module(name)
         import chip_smoke
@@ -173,6 +174,16 @@ def test_port_imports_no_jax(tmp_path):
         item = {{"SR": np.zeros((16, 16, 3), np.float32)}}
         (_, frames), = GroupedEvaluator(trainer, 1).run_sr([item], True)
         assert frames.shape == (11, 16, 16, 3) and np.isfinite(frames).all()
+        uncond = json.loads(json.dumps(opt))
+        uncond["model"]["which_model_G"] = "ddpm"
+        uncond["model"]["unet"]["in_channel"] = 3
+        uncond["model"]["diffusion"].update(conditional=False,
+                                            sampler="dpm++", sampler_steps=3)
+        sampler = create_model(uncond)
+        sampler.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
+                                       "val")
+        (sample,) = GroupedEvaluator(sampler, 1).run_uncond(1)
+        assert sample.shape == (16, 16, 3) and np.isfinite(sample).all()
         opt["phase"] = "train"
         opt["path"]["checkpoint"] = "."
         opt["model"]["unet"]["dropout"] = 0.2
