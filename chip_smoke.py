@@ -114,14 +114,47 @@ model at batches 2, 4 and 8, and K4-K6 at (b, 256, 128) and (b, 16, 256)):
  22. sample_ddpm_128 kernel timing: K4-K6 at (8, 256, 128) and
      (8, 16, 256), K1 at 8x512x4^2->256, each beside its plain version,
      SDPA (or cuDNN's conv alone) and its bound.
-After phase 22 the bf16 K1 tiles, and K2's (dtype, cluster size,
+The SR3 128->1024 cascade stage (configs/sr_sr3_128_1024.json: 91.6M
+parameters, six levels, attention at 32x32, remat, dropout 0.2; phase 3
+also checks K1 at every site of its UNet at batches 2 and 8, K2 at its
+sites, K3 at its statistics-route maps (phase 10, with one 8x128x1024^2
+map) and K4-K6 at (2 | 8, 1024, 512) (phase 11)), the cascade, the bf16
+Adam first moment and the device-resident dataset:
+ 23. 128->1024 model: its float32 forward, batch 1 at 1024^2, on the card
+     against the same weights on the CPU (FORWARD_TOL); peak memory;
+ 24. 128->1024 serving: GroupedEvaluator.run_sr of the config's val batch
+     of 8 images, bf16, T=10, every forward kernel launched, finite
+     outputs; the median ms of a batch-8 1024^2 UNet step of the T=2000
+     chain and a torch.profiler window; peak memory of each;
+ 25. 128->1024 training: TRAIN_STEPS_1024 bf16 remat train steps at the
+     config's batch 2 through train_loop, K1-K6 launched, K3 and K4-K6
+     exactly as often as the model's sites say; the median train step and
+     a torch.profiler window; peak memory;
+ 26. cascade: run_cascade (what python -m sr3_tpu_torch.cascade runs) of
+     configs/sample_sr3_128.json then configs/sr_sr3_128_1024.json, bf16,
+     T=10 each, 2 samples, random weights, no PNGs: shapes, finite
+     outputs, stage 2's conditioning equal to the bicubic resize of stage
+     1's outputs; each stage's wall time;
+ 27. bf16 Adam first moment: 16->128 training at batch 4 with
+     train.optimizer.mu_dtype "bfloat16" through train_loop, every exp_avg
+     bfloat16, the optimizer state's bytes against the float32 run's;
+ 28. device-resident dataset: 16->128 training at batch 4 on a resident
+     synthetic uint8 set of RESIDENT_PAIRS pairs, datasets.train.device_data
+     with RESIDENT_K steps a call through train_loop: finite losses, every
+     parameter moved, the resident bytes; the resident step against the
+     host-loader step, both timed in this run (printed, not gated);
+ 29. 128->1024 kernel timing: K1 at 8x64x1024^2->64 and 8x128x1024^2->64,
+     K3 at 2x64x1024^2, K4-K6 at (2 | 8, 1024, 512) and at the 16->128
+     serving attention (8, 256 | 64, 512), as phase 17.
+After phase 29 the bf16 K1 tiles, and K2's (dtype, cluster size,
 residency), launched since phase 3 (the main paths and the timing) must
 all be ones that phase 3 checked.
 
 Then one JSON line with every kernel's route, source, the TPU kernel it
 replaces, launches in phase 12 (and on the other paths: launches_* keys,
 each path's counters zeroed just before it), max error and times
-(timings_sample_ddpm_128: phase 22), and last the line {"ok": true,
+(timings_sample_ddpm_128: phase 22; timings_128_1024: phase 29), and
+last the line {"ok": true,
 "device": {...}}. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 and prints no result.
@@ -211,15 +244,20 @@ K1_SERVING_512 = [(8, 512, 512, 64), (8, 128, 256, 128)]
 TRAIN_STEPS_512 = 3
 TIME_STEPS_512 = 10
 PROFILE_STEPS_512 = 2
-# (B, C, H, W) of K3: the dropout Blocks at 512^2 and 256^2, and a ragged
-# map whose 90,000 pixels do not divide into the kernel's pixel slices
-K3_SHAPES = [(2, 64, 512, 512), (2, 128, 256, 256), (2, 96, 300, 300)]
+# (B, C, H, W) of K3: the dropout Blocks at 512^2 and 256^2, a ragged map
+# whose 90,000 pixels do not divide into the kernel's pixel slices, and the
+# 128->1024 path's dropout Blocks at 1024^2, 512^2 and 256^2 (batch 2)
+K3_SHAPES = [(2, 64, 512, 512), (2, 128, 256, 256), (2, 96, 300, 300),
+             (2, 64, 1024, 1024), (2, 128, 512, 512), (2, 256, 256, 256)]
+# K3 past 2^30 elements (sums only): 8 x 128 x 1024^2
+K3_LARGE = [(8, 128, 1024, 1024)]
 # K3's sums against float64 sums: s1 within K3_TOL of sum|x|, s2 within
 # K3_TOL of s2 (float32 partial sums of a few thousand terms, in a tree)
 K3_TOL = 1e-5
 # (batch*heads, seq, head_dim): the 64->512 path's 64x64 and 32x32
 # attention, and 16384 tokens (attention at 128x128 on that model)
-LONG_SHAPES = [(2, 4096, 512), (2, 1024, 512), (1, 16384, 256)]
+LONG_SHAPES = [(2, 4096, 512), (2, 1024, 512), (1, 16384, 256),
+               (8, 1024, 512)]
 # remat on against remat off, float32, same seed and dropout draws, cuDNN's
 # deterministic algorithms: the same operations on the same values
 REMAT_TOL = 1e-5
@@ -256,6 +294,30 @@ STRIDED = [("DDIM-50", {"sampler": "ddim", "sampler_steps": 50}, 50),
            ("SDE DPM++-25", {"sampler": "dpm++", "sampler_steps": 25,
                              "eta": 1.0}, 25)]
 NEW_TRAIN_STEPS = 3
+# The SR3 128->1024 cascade stage (configs/sr_sr3_128_1024.json: 91.6M
+# parameters, six levels 1-2-4-8-8-8 down to 32x32, one res block a level,
+# 16 norm groups, attention at 32x32 (1024 tokens at C 512), remat, dropout
+# 0.2), train batch 2 and val batch 8
+CONFIG_1024 = os.path.join(ROOT, "configs", "sr_sr3_128_1024.json")
+# (Cin, Cout, H=W) of every K1 call of its UNet (checked as K1_SHAPES is);
+# phase 3 runs them at every batch of k1_batches (2, 8): the largest input
+# is 8 x 192 x 1024^2 (1.6e9 elements, 3.2 GB in bf16)
+K1_SHAPES_1024 = [
+    (64, 64, 1024), (64, 128, 512), (128, 128, 512), (128, 256, 256),
+    (256, 256, 256), (256, 512, 128), (512, 512, 128), (512, 512, 64),
+    (512, 512, 32), (1024, 512, 32), (1024, 512, 64), (1024, 512, 128),
+    (768, 512, 128), (768, 256, 256), (384, 256, 256), (384, 128, 512),
+    (192, 128, 512), (192, 64, 1024), (128, 64, 1024), (64, 3, 1024),
+]
+# its K2 calls (as K2_SITES): the dropout Blocks below 256^2, the pre-norm
+K2_SITES_1024 = [(512, 128, True), (512, 64, True), (512, 32, True),
+                 (512, 32, False)]
+TRAIN_STEPS_1024 = 3
+TIME_STEPS_1024 = 5
+# the device-resident dataset: synthetic uint8 (HR, SR) pairs at 128^2 on
+# the card, steps a train_loop call
+RESIDENT_PAIRS = 64
+RESIDENT_K = 4
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -457,7 +519,8 @@ def kernel_phase(torch, errs):
     for config, shapes in ((CONFIG, K1_SHAPES), (CONFIG_DDPM, K1_SHAPES),
                            (CONFIG_UNCOND_SR3, K1_SHAPES),
                            (CONFIG_512, K1_SHAPES_512),
-                           (CONFIG_DDPM_128, K1_SHAPES_DDPM_128)):
+                           (CONFIG_DDPM_128, K1_SHAPES_DDPM_128),
+                           (CONFIG_1024, K1_SHAPES_1024)):
         sites = k1_sites(torch, config)
         if sorted(set(sites)) != sorted(shapes):
             failures.append(f"K1 shapes of {os.path.basename(config)}: the "
@@ -466,12 +529,15 @@ def kernel_phase(torch, errs):
                 + [(BATCH_CHECK_512, *s) for s in K1_SHAPES_512]
                 + K1_SERVING_512
                 + [(b, *s) for b in k1_batches(_load_opt(config=CONFIG_DDPM_128))
-                   for s in K1_SHAPES_DDPM_128])
+                   for s in K1_SHAPES_DDPM_128]
+                + [(b, *s) for b in k1_batches(_load_opt(config=CONFIG_1024))
+                   for s in K1_SHAPES_1024])
     k2_cases = K2_EXTRA[:]
     for config, sites in ((CONFIG, K2_SITES), (CONFIG_DDPM, K2_SITES),
                           (CONFIG_UNCOND_SR3, K2_SITES),
                           (CONFIG_512, K2_SITES_512),
-                          (CONFIG_DDPM_128, K2_SITES_DDPM_128)):
+                          (CONFIG_DDPM_128, K2_SITES_DDPM_128),
+                          (CONFIG_1024, K2_SITES_1024)):
         opt = _load_opt(config=config)
         model_sites = k2_sites(torch, config)
         if sorted(set(model_sites)) != sorted(sites):
@@ -582,9 +648,10 @@ def k2_cluster_phase(checked):
 
 
 def k1_batches(opt):
-    """The batches at which the paths run K1 on the sample_ddpm_128 model:
-    2 (run_uncond's groups), the train batch and BATCH_TIME (the timed
-    step)."""
+    """The batches at which the paths run K1 on the sample_ddpm_128 and the
+    128->1024 models: 2 (run_uncond's groups), the train batch and
+    BATCH_TIME (the timed step, the 1024^2 val batch and the cascade's
+    group)."""
     return sorted({BATCH_CHECK, opt["datasets"]["train"]["batch_size"],
                    BATCH_TIME})
 
@@ -1102,9 +1169,14 @@ def k3_phase(torch, errs):
 
     g = torch.Generator(device="cuda").manual_seed(10)
     failures = []
+    for config in (CONFIG_512, CONFIG_1024):
+        missing = set(k3_shapes(torch, config)) - set(K3_SHAPES)
+        if missing:
+            failures.append(f"K3 shapes of {os.path.basename(config)} not "
+                            f"checked: {sorted(missing)}")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for b, c, h, w in K3_SHAPES:
+        for b, c, h, w in K3_SHAPES + K3_LARGE:
             label = f"{b}x{c}x{h}x{w}"
             x = 3 * torch.randn(b, c, h, w, device="cuda", generator=g) + 1
             x = x.to(dtype).contiguous(memory_format=torch.channels_last)
@@ -1114,9 +1186,15 @@ def k3_phase(torch, errs):
             torch.cuda.synchronize()
             if groupnorm.stats_counter.n != n + 1:
                 failures.append(f"gn_stats {label} did not launch once")
-            xd = x.double()
-            r1, r2 = xd.sum(dim=(2, 3)), xd.square().sum(dim=(2, 3))
-            scales = (xd.abs().sum(dim=(2, 3)), r2)
+            # float64 sums an image at a time (1 GB of float64 at most)
+            r1, r2, sabs = (torch.empty(b, c, dtype=torch.float64,
+                                        device="cuda") for _ in range(3))
+            for i in range(b):
+                xd = x[i].double()
+                r1[i], r2[i] = xd.sum(dim=(1, 2)), xd.square().sum(dim=(1, 2))
+                sabs[i] = xd.abs().sum(dim=(1, 2))
+                del xd
+            scales = (sabs, r2)
             e = errs.setdefault("gn_stats", {"max_abs_err": 0.0,
                                              "max_rel_err": 0.0, "checks": 0})
             for name, got, plain, ref, sc in (("s1", s1, p1, r1, scales[0]),
@@ -1135,6 +1213,10 @@ def k3_phase(torch, errs):
                       flush=True)
                 if not ok:
                     failures.append(f"gn_stats {dn} {label} {name}")
+            if (b, c, h, w) in K3_LARGE:
+                del x
+                torch.cuda.empty_cache()
+                continue
             wt = 1 + 0.2 * torch.randn(c, device="cuda", generator=g)
             bs = 0.1 * torch.randn(c, device="cuda", generator=g)
             n = groupnorm.stats_counter.n
@@ -1207,6 +1289,30 @@ def long_attention_phase(torch, errs):
     if failures:
         raise AssertionError(f"long-sequence attention disagrees with the "
                              f"plain versions: {failures}")
+
+
+def k3_shapes(torch, config):
+    """(B, C, H, W) of each K3 call of one training forward of ``config``'s
+    model at its train batch, read off a meta-device copy: the dropout Block
+    (block2) of every ResnetBlock on a map of STATS_MIN_HW pixels or
+    more."""
+    from sr3_tpu_torch.models.networks import define_G
+    from sr3_tpu_torch.models.unet import Downsample, Upsample
+    from sr3_tpu_torch.ops.groupnorm import STATS_MIN_HW
+
+    opt = _load_opt(config=config)
+    b = opt["datasets"]["train"]["batch_size"]
+    net = define_G(opt, device="meta").denoise_fn
+    res, out = net.image_size, []
+    for layer in (*net.downs[1:], *net.mid, *net.ups):
+        if isinstance(layer, Downsample):
+            res //= 2
+        elif isinstance(layer, Upsample):
+            res *= 2
+        elif layer.res_block.block2.dropout and res * res >= STATS_MIN_HW:
+            c = layer.res_block.block2.block[3].weight.shape[1]
+            out.append((b, c, res, res))
+    return out
 
 
 def k3_sites(opt):
@@ -1580,7 +1686,8 @@ def gn_launch_phase(torch):
     from sr3_tpu_torch.ops import conv_fused, groupnorm
 
     failures = []
-    for config, sites in ((CONFIG, K2_SITES), (CONFIG_512, K2_SITES_512)):
+    for config, sites in ((CONFIG, K2_SITES), (CONFIG_512, K2_SITES_512),
+                          (CONFIG_1024, K2_SITES_1024)):
         opt = _load_opt(config=config)
         groups = opt["model"]["unet"].get("norm_groups") or 32
         for b in (opt["datasets"]["train"]["batch_size"], BATCH_TIME):
@@ -1820,10 +1927,11 @@ def _sr_items(torch, n, seed):
 
 def _forward_vs_cpu(torch, config):
     """One float32 forward of ``config``'s full-width UNet (random seeded
-    weights), batch 1 at 128^2, on the card (kernels; counters zeroed just
-    before, every forward kernel must launch) against the same weights on
-    the CPU (plain versions), within FORWARD_TOL; conditioned on noise
-    level 0.5 (sr3) or on t = 1999, the top of the schedule (ddpm)."""
+    weights), batch 1 at its image size, on the card (kernels; counters
+    zeroed just before, every forward kernel must launch) against the same
+    weights on the CPU (plain versions), within FORWARD_TOL; conditioned on
+    noise level 0.5 (sr3) or on t = 1999, the top of the schedule (ddpm).
+    Returns the module on the card."""
     import copy
 
     from sr3_tpu_torch.models.networks import count_params, define_G
@@ -1832,7 +1940,8 @@ def _forward_vs_cpu(torch, config):
                    seed=0).denoise_fn
     cpu = copy.deepcopy(gpu).cpu()
     g = torch.Generator().manual_seed(1)
-    x = torch.randn(1, gpu.in_channel, 128, 128, generator=g)
+    size = gpu.image_size
+    x = torch.randn(1, gpu.in_channel, size, size, generator=g)
     cond = torch.tensor([1999.0 if gpu.cond_mode == "ddpm" else 0.5])
     for c in counters():
         c.n = 0
@@ -1850,6 +1959,7 @@ def _forward_vs_cpu(torch, config):
         raise AssertionError(f"full-width forward: rel {rel} > {FORWARD_TOL}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel did not launch: {launches}")
+    return gpu
 
 
 def _serving_trainer(config):
@@ -2144,6 +2254,417 @@ def kernel_timing_ddpm_128_phase(torch):
         _attention_entries(torch, g, entry, b, seq, d)
     return out
 
+# --------------------------------------- the 128->1024 slice and the rest
+
+
+def _peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+@phase("128->1024 model")
+def model_1024_phase(torch):
+    """configs/sr_sr3_128_1024.json at full width: the float32 forward,
+    batch 1 at 1024^2, on the card against the CPU (FORWARD_TOL)."""
+    from sr3_tpu_torch.models.networks import count_params
+
+    torch.cuda.reset_peak_memory_stats()
+    net = _forward_vs_cpu(torch, CONFIG_1024)
+    n = count_params(net)
+    print(f"  peak device memory of the float32 forward (and its weights): "
+          f"{_peak_gib(torch):.2f} GiB", flush=True)
+    if n != 91_564_227:
+        raise AssertionError(f"expected 91,564,227 parameters, got {n:,d}")
+    del net
+    torch.cuda.empty_cache()
+
+
+def _items_1024(torch, n, seed):
+    """n seeded 128->1024 val items: SR the bicubic upsampling of a random
+    128^2 image, HWC float32 in [-1, 1]."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    lr = torch.rand(n, 3, 128, 128, generator=g) * 2 - 1
+    sr = F.interpolate(lr, size=(1024, 1024), mode="bicubic",
+                       align_corners=False).clamp(-1, 1)
+    return [{"SR": sr[i].permute(1, 2, 0).numpy(), "Index": i}
+            for i in range(n)]
+
+
+@phase("128->1024 serving")
+def serving_1024_phase(torch):
+    """GroupedEvaluator.run_sr of the val batch (8 images, one group),
+    bf16, T=10; then the median ms of a batch-8 p_sample_step at 1024^2 on
+    the T=2000 schedule and a torch.profiler window; peak memory."""
+    import numpy as np
+
+    from sr3_tpu_torch.models.schedule import make_schedule
+    from sr3_tpu_torch.training.evaluation import GroupedEvaluator
+
+    trainer = _serving_trainer(CONFIG_1024)
+    bt = trainer.opt["datasets"]["val"]["batch_size"]
+    items = _items_1024(torch, bt, seed=30)
+    ev = GroupedEvaluator(trainer, group_size=bt)
+    for c in counters():
+        c.n = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [o for _, o in ev.run_sr(iter(items))]
+    dt = time.perf_counter() - t0
+    launches = forward_launches()
+    finite = all(np.isfinite(o).all() for o in outs)
+    print(f"  run_sr {trainer.netG.dtype} B={bt}, T="
+          f"{trainer.sched.num_timesteps}: {len(outs)} images of "
+          f"{outs[0].shape}, finite {finite}, {dt:.2f} s; launches "
+          f"{launches}; peak device memory {_peak_gib(torch):.2f} GiB",
+          flush=True)
+    if len(outs) != bt or outs[0].shape != (1024, 1024, 3) or not finite:
+        raise AssertionError(f"1024^2 serving: {len(outs)} outputs, finite "
+                             f"{finite}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+    sched = make_schedule(trainer.opt["model"]["beta_schedule"]["val"]
+                          | {"n_timestep": 2000}, "cuda")
+    net = trainer._eval_params()
+    gd = torch.Generator(device="cuda").manual_seed(31)
+    cond = torch.rand(bt, 3, 1024, 1024, device="cuda", generator=gd) * 2 - 1
+    img = torch.randn(bt, 3, 1024, 1024, device="cuda", generator=gd)
+    steps = iter(range(1999, -1, -1))
+    step = lambda: trainer.diffusion.p_sample_step(
+        net, sched, img, next(steps), cond, generator=gd)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_each(torch, step, TIME_STEPS_1024)
+        step_ms = float(np.median(ms))
+        print(f"  UNet step (p_sample_step) B={bt} 1024^2 {net.dtype}: median "
+              f"{step_ms:.3f} ms/step over {len(ms)} steps (min "
+              f"{min(ms):.3f}, max {max(ms):.3f}); 2000-step throughput "
+              f"extrapolated {bt / (2000 * step_ms / 1000):.6f} img/s; peak "
+              f"device memory {_peak_gib(torch):.2f} GiB", flush=True)
+        _profile_steps(torch, step, 1)
+    del trainer, ev, net, cond, img
+    torch.cuda.empty_cache()
+    return launches
+
+
+@phase("128->1024 training")
+def training_1024_phase(torch):
+    """TRAIN_STEPS_1024 full-width steps through train_loop at the config's
+    batch 2, bf16, remat on; every kernel launched, K3 and K4-K6 as often as
+    the model says; then the median train step, a torch.profiler window
+    and the peak memory."""
+    import numpy as np
+
+    from sr3_tpu_torch.models.networks import count_params
+    from sr3_tpu_torch.models.unet import SelfAttention
+
+    trainer, opt = _train_trainer(torch, CONFIG_1024, TRAIN_STEPS_1024)
+    b = opt["datasets"]["train"]["batch_size"]
+    net = trainer.netG
+    n_attn = sum(isinstance(m, SelfAttention) for m in net.modules())
+    sites = k3_sites(opt)
+    print(f"  train-phase Trainer: {count_params(net):,d} params float32, "
+          f"compute {net.dtype}, batch {b}, dropout "
+          f"{opt['model']['unet']['dropout']}, remat {net.remat}, {n_attn} "
+          f"attention calls and {sites} statistics-route GroupNorms per "
+          f"forward", flush=True)
+    if net.dtype != torch.bfloat16 or b != 2 or not net.remat:
+        raise AssertionError("the 128->1024 path trains at batch 2, bf16, "
+                             "remat on")
+    loader = _synthetic_batches(np, TRAIN_STEPS_1024, b, seed=32,
+                                lr_size=128)
+    torch.cuda.reset_peak_memory_stats()
+    launches = _train_loop_checked(torch, trainer, opt, loader, KERNELS)
+    steps = TRAIN_STEPS_1024
+    expect = {"gn_stats": 2 * sites * steps,
+              "flash_attention_fwd": 2 * n_attn * steps,
+              "flash_attention_bwd_dkv": n_attn * steps,
+              "flash_attention_bwd_dq": n_attn * steps}
+    wrong = {k: (launches[k], v) for k, v in expect.items()
+             if launches[k] != v}
+    print(f"  expected launches {expect}; peak device memory "
+          f"{_peak_gib(torch):.2f} GiB", flush=True)
+    if wrong:
+        raise AssertionError(f"launches (got, expected): {wrong}")
+    trainer.feed_data(_synthetic_batches(np, 1, b, seed=33, lr_size=128)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_each(torch, trainer.optimize_parameters, TIME_STEPS_1024)
+    step_ms = float(np.median(ms))
+    print(f"  train step B={b} {net.dtype} remat 1024^2: median "
+          f"{step_ms:.3f} ms/step over {len(ms)} steps (min {min(ms):.3f}, "
+          f"max {max(ms):.3f}); {b / (step_ms / 1000):.4f} train img/s; peak "
+          f"device memory {_peak_gib(torch):.2f} GiB", flush=True)
+    _profile_steps(torch, trainer.optimize_parameters, 1)
+    del trainer, net
+    torch.cuda.empty_cache()
+    return launches
+
+
+@phase("cascade")
+def cascade_phase(torch):
+    """run_cascade of sample_sr3_128 then sr_sr3_128_1024 (bf16, T=10 each,
+    2 samples, random weights, no output directory): stage 1's samples
+    (2, 128, 128, 3), stage 2's outputs (2, 1024, 1024, 3), all finite;
+    stage 2's conditioning (what its chain was given) equal to the bicubic
+    resize of stage 1's outputs through uint8; each stage's wall time."""
+    import numpy as np
+
+    import sr3_tpu_torch.utils.metrics as Metrics
+    from sr3_tpu_torch.data.prepare import BICUBIC, resize_and_convert
+    from sr3_tpu_torch.training import cascade
+    from sr3_tpu_torch.training.trainer import Trainer
+
+    opts = [_load_opt(val_steps=10, config=c)
+            for c in (CONFIG_UNCOND_SR3, CONFIG_1024)]
+    stages, conditions = [], []
+    run_stage, test_batched = cascade.run_stage, Trainer.test_batched
+
+    def timed_stage(opt, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_stage(opt, **kw)
+        stages.append((opt["name"], time.perf_counter() - t0, out))
+        return out
+
+    def recorded(self, xs, generators, continous=False):
+        conditions.append(np.array(xs))
+        return test_batched(self, xs, generators, continous)
+
+    cascade.run_stage, Trainer.test_batched = timed_stage, recorded
+    for c in counters():
+        c.n = 0
+    try:
+        final = cascade.run_cascade(opts, n_samples=2)
+    finally:
+        cascade.run_stage, Trainer.test_batched = run_stage, test_batched
+    launches = forward_launches()
+    (_, t1, out1), (_, t2, out2) = stages
+    want = np.stack([resize_and_convert(Metrics.tensor2img(o), 1024,
+                                        BICUBIC).astype(np.float32)
+                     / 127.5 - 1.0 for o in out1])
+    given = conditions[0][:len(out1)]
+    same = given.shape == want.shape and np.array_equal(given, want)
+    finite = all(np.isfinite(o).all() for o in out1 + out2)
+    print(f"  stage 1 {opts[0]['name']}: {len(out1)} x {out1[0].shape} in "
+          f"{t1:.2f} s; stage 2 {opts[1]['name']}: {len(out2)} x "
+          f"{out2[0].shape} in {t2:.2f} s (group of "
+          f"{conditions[0].shape[0]}); finite {finite}; stage 2's condition "
+          f"equals the resize of stage 1's outputs: {same}; launches "
+          f"{launches}", flush=True)
+    if (len(final) != 2 or final[0].shape != (1024, 1024, 3)
+            or out1[0].shape != (128, 128, 3) or not finite or not same):
+        raise AssertionError("cascade outputs or conditioning wrong")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _optimizer_state_bytes(trainer):
+    return sum(t.numel() * t.element_size()
+               for st in trainer.optimizer.state.values()
+               for t in st.values() if t.is_cuda)
+
+
+@phase("bf16 Adam first moment")
+def mu_bf16_phase(torch, f32_state_bytes):
+    """16->128 at batch 4 with train.optimizer.mu_dtype "bfloat16":
+    NEW_TRAIN_STEPS steps through train_loop; every exp_avg bfloat16, every
+    exp_avg_sq float32; the optimizer state's bytes against the float32
+    run's (phase 7's trainer)."""
+    import numpy as np
+
+    from sr3_tpu_torch.training.trainer import create_model
+
+    opt = _load_opt(phase="train", config=CONFIG)
+    opt["train"].update(n_iter=NEW_TRAIN_STEPS, print_freq=1,
+                        val_freq=10 ** 9, save_checkpoint_freq=10 ** 9)
+    opt["train"]["optimizer"]["mu_dtype"] = "bfloat16"
+    trainer = create_model(opt)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   schedule_phase="train")
+    b = opt["datasets"]["train"]["batch_size"]
+    loader = _synthetic_batches(np, NEW_TRAIN_STEPS, b, seed=34)
+    launches = _train_loop_checked(torch, trainer, opt, loader,
+                                   KERNELS_16_128)
+    states = list(trainer.optimizer.state.values())
+    mu = {str(st["exp_avg"].dtype) for st in states}
+    nu = {str(st["exp_avg_sq"].dtype) for st in states}
+    nbytes = _optimizer_state_bytes(trainer)
+    n = sum(p.numel() for p in trainer.netG.parameters())
+    print(f"  mu_dtype bfloat16: exp_avg {mu}, exp_avg_sq {nu} over "
+          f"{len(states)} parameters; optimizer state {nbytes / 1e6:.1f} MB "
+          f"against {f32_state_bytes / 1e6:.1f} MB for the float32 run "
+          f"(saved {(f32_state_bytes - nbytes) / 1e6:.1f} MB; 2 B x "
+          f"{n / 1e6:.1f}M parameters = {2 * n / 1e6:.1f} MB)", flush=True)
+    if mu != {"torch.bfloat16"} or nu != {"torch.float32"} \
+            or len(states) != len(list(trainer.netG.parameters())) \
+            or f32_state_bytes - nbytes != 2 * n:
+        raise AssertionError(f"bf16 first moment: exp_avg {mu}, exp_avg_sq "
+                             f"{nu}, {nbytes} bytes")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+class SyntheticPairs:
+    """``n`` seeded uint8 (HR, SR) pairs at 128^2 as the port's dataset
+    decodes them (``_decoded``): SR the nearest upsampling of a random 16^2
+    image, HR that plus noise."""
+    min_max = (-1, 1)
+
+    def __init__(self, np, n, seed):
+        rng = np.random.default_rng(seed)
+        lr = rng.integers(0, 256, (n, 16, 16, 3))
+        sr = np.repeat(np.repeat(lr, 8, axis=1), 8, axis=2)
+        hr = np.clip(sr + rng.integers(-12, 13, sr.shape), 0, 255)
+        self.sr, self.hr = sr.astype(np.uint8), hr.astype(np.uint8)
+
+    def __len__(self):
+        return len(self.sr)
+
+    def _decoded(self, i):
+        return {"HR": self.hr[i], "SR": self.sr[i]}
+
+
+@phase("device-resident dataset")
+def resident_phase(torch):
+    """16->128 at batch 4 with datasets.train.device_data on RESIDENT_PAIRS
+    synthetic uint8 pairs, RESIDENT_K steps a call through train_loop:
+    finite losses, every parameter moved, every kernel launched, the
+    resident bytes; then the median step of the resident path against the
+    host-loader path (feed_data of host batches) in this run."""
+    import numpy as np
+
+    from sr3_tpu_torch.data.loader import DataLoader
+    from sr3_tpu_torch.training.loops import train_loop
+    from sr3_tpu_torch.training.trainer import create_model
+
+    opt = _load_opt(phase="train", config=CONFIG)
+    calls = 3
+    opt["train"].update(n_iter=calls * RESIDENT_K,
+                        steps_per_dispatch=RESIDENT_K, print_freq=RESIDENT_K,
+                        val_freq=10 ** 9, save_checkpoint_freq=10 ** 9)
+    opt["datasets"]["train"]["device_data"] = True
+    trainer = create_model(opt)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   schedule_phase="train")
+    b = opt["datasets"]["train"]["batch_size"]
+    data = SyntheticPairs(np, RESIDENT_PAIRS, seed=35)
+    loader = DataLoader(data, batch_size=b, shuffle=True, drop_last=True)
+    before = [p.detach().clone() for p in trainer.netG.parameters()]
+    losses, step = [], trainer.optimize_parameters_resident
+
+    def logged(bs, k):
+        step(bs, k)
+        losses.append(trainer.log_dict["l_pix"])
+
+    trainer.optimize_parameters_resident = logged
+    for c in counters():
+        c.n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        train_loop(trainer, loader, opt, lambda s, e: None)
+        torch.cuda.synchronize()
+    finally:
+        del trainer.optimize_parameters_resident
+    dt = time.perf_counter() - t0
+    launches = launches_of(KERNELS_16_128)
+    losses = [float(x) for x in losses]
+    resident = sum(v.numel() * v.element_size()
+                   for v in trainer._dev_data.values())
+    still = sum(torch.equal(p.detach(), q)
+                for p, q in zip(trainer.netG.parameters(), before))
+    print(f"  device_data: {len(data)} pairs resident, "
+          f"{resident / 1e6:.3f} MB uint8 ({trainer._dev_data['HR'].dtype}); {trainer.step} steps in "
+          f"{len(losses)} calls of {RESIDENT_K} in {dt:.2f} s; last losses "
+          f"{[round(x, 5) for x in losses]}; parameters that did not move "
+          f"{still}; launches {launches}", flush=True)
+    if (resident != 2 * RESIDENT_PAIRS * 128 * 128 * 3
+            or trainer.step != calls * RESIDENT_K
+            or not all(np.isfinite(losses)) or still
+            or min(launches.values()) <= 0):
+        raise AssertionError("device-resident training failed its checks")
+    # the resident step against the host-loader step, one call each way
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        trainer.optimize_parameters_resident(b, RESIDENT_K)
+    torch.cuda.synchronize()
+    resident_ms = 1000 * (time.perf_counter() - t0) / (calls * RESIDENT_K)
+    batches = _synthetic_batches(np, calls * RESIDENT_K, b, seed=36)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        trainer.feed_data(batch)
+        trainer.optimize_parameters()
+    torch.cuda.synchronize()
+    host_ms = 1000 * (time.perf_counter() - t0) / len(batches)
+    print(f"  train step B={b} bf16, mean of {calls * RESIDENT_K}: resident "
+          f"{resident_ms:.3f} ms, host loader {host_ms:.3f} ms (host-bound; "
+          f"printed, not gated)", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+@phase("128->1024 kernel timing")
+def kernel_timing_1024_phase(torch):
+    """At this slice's shapes, bf16: K1 at 8x64x1024^2->64 and
+    8x128x1024^2->64 (+FiLM+residual; beside it cuDNN's conv alone), K3 at
+    2x64x1024^2, K4 (with its logsumexp), K5 and K6 at (2 | 8, 1024, 512),
+    and at the 16->128 serving attention (8, 256 | 64, 512); each beside its
+    plain version, the library call where there is one and its bound."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from sr3_tpu_torch.ops import conv_fused, groupnorm
+
+    g = torch.Generator(device="cuda").manual_seed(37)
+    out = {}
+
+    def entry(name, shape, *args):
+        out.setdefault(name, {})[shape] = _time_entry(torch, name, shape,
+                                                      *args)
+
+    b, hw = BATCH_TIME, 1024
+    for cin in (64, 128):
+        args, kw = _k1_inputs(torch, g, b, cin, 64, hw, torch.bfloat16, True)
+        px = b * hw * hw
+        shape = f"{b}x{cin}x{hw}x{hw}->64 +film+residual"
+        entry("gn_silu_conv3x3", shape,
+              functools.partial(conv_fused.gn_silu_conv3x3, *args, **kw),
+              functools.partial(conv_fused.gn_silu_conv3x3_plain, *args, **kw),
+              None, 2 * px * cin * 64 * 9,
+              2 * (px * cin + 2 * px * 64 + 64 * cin * 9))
+        x, w, cb = args[0], args[3], args[4].to(torch.bfloat16)
+        conv = lambda: F.conv2d(x, w, cb, padding=1)
+        alone = {"cudnn_conv_alone_ms": _time_ms(torch, conv, n=5),
+                 "cudnn_conv_alone_device_ms": _device_ms(torch, conv)}
+        out["gn_silu_conv3x3"][shape].update(alone)
+        print(f"  cuDNN F.conv2d alone {b}x{cin}x{hw}x{hw}->64, ms (events "
+              f"/ device): {alone['cudnn_conv_alone_ms']:.4f} / "
+              f"{alone['cudnn_conv_alone_device_ms']:.4f}", flush=True)
+        del args, kw, x, w
+        torch.cuda.empty_cache()
+    x = torch.randn(2, 64, hw, hw, device="cuda", generator=g)
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    xf = x.float()
+    entry("gn_stats", f"2x64x{hw}x{hw}",
+          lambda: groupnorm.gn_stats(x), lambda: groupnorm.gn_stats_plain(x),
+          lambda: torch.var_mean(xf, dim=(2, 3), correction=0),
+          3 * x.numel(), 2 * x.numel() + 2 * 4 * 2 * 64)
+    del x, xf
+    for bh, seq, d in ((2, 1024, 512), (8, 1024, 512), (8, 256, 512),
+                       (8, 64, 512)):
+        _attention_entries(torch, g, entry, bh, seq, d)
+    return out
+
 
 def main():
     import torch
@@ -2168,6 +2689,7 @@ def main():
         grad_check_phase(torch)
         _, train_times = train_timing_phase(torch, trainer)
         times.update(train_times)
+        f32_state_bytes = _optimizer_state_bytes(trainer)
         del trainer
         # the SR3 64->512 training path, and its serving path
         k3_phase(torch, errs)
@@ -2183,6 +2705,16 @@ def main():
         ddpm = ddpm_phase(torch)
         uncond = uncond_phase(torch)
         timings_ddpm_128 = kernel_timing_ddpm_128_phase(torch)
+        # the 128->1024 stage, the cascade, the bf16 first moment and the
+        # device-resident dataset
+        model_1024_phase(torch)
+        paths = {"128_1024_serving": serving_1024_phase(torch),
+                 "128_1024_train": training_1024_phase(torch),
+                 "cascade_128_1024": cascade_phase(torch),
+                 "16_128_train_mu_bf16": mu_bf16_phase(torch,
+                                                       f32_state_bytes),
+                 "16_128_train_device_data": resident_phase(torch)}
+        timings_1024 = kernel_timing_1024_phase(torch)
         k1_tile_phase(checked_tiles)
         k2_cluster_phase(checked_clusters)
     except Exception:  # report any phase's failure, print no result
@@ -2208,8 +2740,12 @@ def main():
                .replace("+", "p").replace("-", "_"): v.get(name, 0)
                for label, v in strided.items()},
         }
+        entry.update({f"launches_{k}": v.get(name, 0)
+                      for k, v in paths.items()})
         if name in timings_ddpm_128:
             entry["timings_sample_ddpm_128"] = timings_ddpm_128[name]
+        if name in timings_1024:
+            entry["timings_128_1024"] = timings_1024[name]
         if name in times:
             entry["ms_16_128"], entry["plain_ms_16_128"] = times[name]
         kernels.append(entry)

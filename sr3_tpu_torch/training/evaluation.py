@@ -31,8 +31,10 @@ def per_image(dataset):
         yield dataset[i]
 
 
-def image_seed(base_seed, index):
-    """64-bit generator seed of one image, from (base seed, image index)."""
+def fold_seed(base_seed, index):
+    """64-bit generator seed of stream ``index`` under ``base_seed`` (an
+    image of a group, a training step): the role ``jax.random.fold_in``
+    plays in the JAX package."""
     return int(np.random.SeedSequence([base_seed, index])
                .generate_state(1, np.uint64)[0])
 
@@ -50,7 +52,7 @@ class GroupedEvaluator:
     def _generators(self, idx0):
         dev = self.trainer.device
         return [torch.Generator(device=dev).manual_seed(
-                    image_seed(self.base_seed, idx0 + j))
+                    fold_seed(self.base_seed, idx0 + j))
                 for j in range(self.group)]
 
     def run_sr(self, items, continous=False):

@@ -1,14 +1,16 @@
 """The training loop.
 
-Counterpart of the host-loader path of ``sr3_tpu/training/loops.py``
-(``log_train_step``, ``train_loop``): cadenced logging, validation and
-checkpoints that fire when the step counter crosses a multiple of their
-frequency, the non-finite-loss guard (``train.nan_guard``: raise, warn or
-off) and a checkpoint at the next step boundary after SIGTERM. With
+Counterpart of ``sr3_tpu/training/loops.py`` (``log_train_step``,
+``train_loop``): cadenced logging, validation and checkpoints that fire
+when the step counter crosses a multiple of their frequency, the
+non-finite-loss guard (``train.nan_guard``: raise, warn or off) and a
+checkpoint at the next step boundary after SIGTERM. With
 ``train.steps_per_dispatch`` K > 1 the loop gathers K batches and runs their
 steps one after another before the cadences fire, as the JAX package's
-fused K-step dispatch does; the device-resident dataset
-(``datasets.train.device_data``) is not ported yet.
+fused K-step dispatch does. With ``datasets.train.device_data`` the train
+set is held on the device (``Trainer.load_device_dataset``) and each call of
+``optimize_parameters_resident`` runs K steps on batches drawn there; no
+host loader runs in the loop.
 """
 
 from __future__ import annotations
@@ -84,11 +86,11 @@ def train_loop(trainer, train_loader, opt, on_validate, tb_logger=None,
     ``train.val_freq`` steps; schedule switching is the callee's concern.
     """
     train_opt = opt["train"]
-    if ((opt.get("datasets") or {}).get("train") or {}).get("device_data"):
-        raise NotImplementedError(
-            "datasets.train.device_data (the device-resident dataset) is not "
-            "ported yet")
-    if len(train_loader) == 0:
+    device_data = bool(
+        ((opt.get("datasets") or {}).get("train") or {}).get("device_data"))
+    # the resident path draws with replacement when the batch exceeds the
+    # set, so only the host loader can run out of batches
+    if not device_data and len(train_loader) == 0:
         raise ValueError(
             "train loader yields zero batches: dataset has "
             f"{len(train_loader.dataset)} samples but batch_size="
@@ -118,6 +120,14 @@ def train_loop(trainer, train_loader, opt, on_validate, tb_logger=None,
             if log_wandb_ckpt:
                 wandb_logger.log_checkpoint(current_epoch, current_step)
 
+    def preempted():
+        if not watch.fired():
+            return False
+        logger.warning("SIGTERM received (preemption?) — checkpointing at "
+                       "iter %s and stopping.", "{:,d}".format(current_step))
+        trainer.save_network(current_epoch, current_step)
+        return True
+
     def epochs():
         epoch = current_epoch
         while True:
@@ -126,6 +136,21 @@ def train_loop(trainer, train_loader, opt, on_validate, tb_logger=None,
                 yield epoch, b
 
     try:
+        if device_data:
+            trainer.load_device_dataset(train_loader.dataset)
+            batch_size = train_loader.batch_size
+            n = len(train_loader.dataset)
+            while current_step < n_iter:
+                k = min(spd, n_iter - current_step)
+                trainer.optimize_parameters_resident(batch_size, k)
+                prev_step = current_step
+                current_step += k
+                current_epoch = 1 + current_step * batch_size // max(n, 1)
+                cadences(prev_step)
+                if preempted():
+                    break
+            logger.info("End of training.")
+            return
         chunk = []
         for epoch, train_data in epochs():
             if current_step >= n_iter:
@@ -143,11 +168,7 @@ def train_loop(trainer, train_loader, opt, on_validate, tb_logger=None,
             current_step += len(chunk)
             chunk = []
             cadences(prev_step)
-            if watch.fired():
-                logger.warning("SIGTERM received (preemption?) — "
-                               "checkpointing at iter %s and stopping.",
-                               "{:,d}".format(current_step))
-                trainer.save_network(current_epoch, current_step)
+            if preempted():
                 break
         if wandb_logger and current_epoch > 0:
             wandb_logger.log_metrics({"epoch": current_epoch})

@@ -7,12 +7,16 @@ the EMA; ``get_current_log``; ``finetune_norm``), checkpoints
 (``save_network`` / ``load_network`` with the reference's
 ``I{iter}_E{epoch}_{gen,opt}.pth`` names), the bf16 sampling copy
 (``_eval_params``), the sampler choice (``_chain_fn``: ancestral, DDIM or
-DPM-Solver++) and ``test_batched`` / ``sample_batched``. Parameters are
-float32; the UNet computes in its own dtype (bf16 on CUDA). Every training
-draw comes from one ``torch.Generator`` on the trainer's device, seeded
-from the config's seed.
-Not ported yet: the bf16 Adam first moment (``train.optimizer.mu_dtype``)
-and the device-resident dataset with its fused K-step dispatch.
+DPM-Solver++), ``test_batched`` / ``sample_batched``, and the
+device-resident dataset (``load_device_dataset``,
+``optimize_parameters_resident``). Parameters are float32; the UNet
+computes in its own dtype (bf16 on CUDA). The optimizer is
+``training/optim.py``'s Adam (optax's arithmetic) with the first moment in
+``train.optimizer.mu_dtype`` (float32, or "bfloat16"). Every draw of a
+host-loader step comes from one ``torch.Generator`` on the trainer's
+device, seeded from the config's seed; a resident step draws its batch and
+its loss from a generator seeded from (seed, step), as the JAX package folds
+the step into its key, so a resumed run draws what the straight run would.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import torch
 
 from sr3_tpu_torch.models.networks import count_params, define_G
 from sr3_tpu_torch.models.schedule import make_schedule
-from sr3_tpu_torch.utils.runtime import resolve_device
+from sr3_tpu_torch.training.evaluation import fold_seed
+from sr3_tpu_torch.training.optim import Adam
+from sr3_tpu_torch.utils.runtime import DTYPES, resolve_device
 from sr3_tpu_torch.utils.torch_compat import load_gen_pth
 
 logger = logging.getLogger("base")
@@ -61,6 +67,7 @@ class Trainer:
         self.conditional = self.diffusion.conditional
         # host RNG: the evaluator draws its base seed from it, as the JAX
         # trainer splits its key
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.schedules = {}
@@ -76,16 +83,18 @@ class Trainer:
         self.optimizer = None
         if self.phase == "train":
             opt_cfg = opt["train"]["optimizer"]
-            if opt_cfg.get("mu_dtype") == "bfloat16":
-                raise NotImplementedError(
-                    "train.optimizer.mu_dtype 'bfloat16' is not ported yet")
+            mu_dtype = opt_cfg.get("mu_dtype")
+            if mu_dtype not in (None, "float32", "bfloat16"):
+                raise ValueError(f"train.optimizer.mu_dtype must be float32 "
+                                 f"or bfloat16, got {mu_dtype!r}")
             if opt["model"].get("finetune_norm"):
                 params = finetune_norm(self.netG)
             else:
                 params = list(self.netG.parameters())
             # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8
             if params:
-                self.optimizer = torch.optim.Adam(params, lr=opt_cfg["lr"])
+                self.optimizer = Adam(params, lr=opt_cfg["lr"],
+                                      mu_dtype=DTYPES[mu_dtype or "float32"])
         self.ema = ({n: p.detach().clone()
                      for n, p in self.netG.named_parameters()}
                     if self.use_ema else None)
@@ -94,6 +103,7 @@ class Trainer:
         self.begin_epoch = 0
         self.log_dict = {}
         self.data = None
+        self._dev_data = None
         self.load_network()
 
     def set_new_noise_schedule(self, schedule_opt, schedule_phase="train"):
@@ -120,21 +130,95 @@ class Trainer:
         """One training step: loss, backward, Adam, EMA (reference
         model/model.py:48-58). The loss stays on the device until a log
         line reads it."""
-        self.netG.train()
         keys = ("HR", "SR") if self.conditional else ("HR",)
-        batch = {k: self.data[k] for k in keys}
+        self._train_step({k: self.data[k] for k in keys}, self.generator)
+
+    def _train_step(self, batch, generator):
+        self.netG.train()
         train = self.optimizer is not None
         if train:
             self.optimizer.zero_grad(set_to_none=True)
         with torch.set_grad_enabled(train):
             loss = self.diffusion.p_losses(self.netG, self.sched, batch,
-                                           self.generator)
+                                           generator)
         if train:
             loss.backward()
             self.optimizer.step()
         self._update_ema()
         self.step += 1
         self.log_dict["l_pix"] = loss.detach()
+
+    # ------------------------------------------------ device-resident data
+
+    def load_device_dataset(self, dataset):
+        """Put the whole train set on the device once, as uint8 NHWC (decoded,
+        not normalized: a quarter of float32's bytes): 'HR' and 'SR', 'HR'
+        only when unconditional. ``dataset``: the port's ``LRHRDataset``, or
+        any set with its ``_decoded(i)`` (uint8 HWC arrays) and ``min_max``
+        (default (-1, 1)). Returns the bytes it holds."""
+        keys = ("HR", "SR") if self.conditional else ("HR",)
+        items = [dataset._decoded(i) for i in range(len(dataset))]
+        stacked = {k: np.stack([it[k] for it in items]) for k in keys}
+        self._dev_min_max = getattr(dataset, "min_max", (-1, 1))
+        for k, v in stacked.items():
+            if v.dtype != np.uint8 or v.ndim != 4:
+                raise ValueError(f"resident {k}: uint8 (N, H, W, C) arrays, "
+                                 f"got {v.dtype} {v.shape}")
+        self._dev_data = {k: torch.from_numpy(np.ascontiguousarray(v))
+                          .to(self.device) for k, v in stacked.items()}
+        self._resident_generator = torch.Generator(device=self.device)
+        nbytes = sum(v.nbytes for v in stacked.values())
+        logger.info("Device-resident dataset: %d samples, %.1f MB uint8 on "
+                    "the device", len(next(iter(stacked.values()))),
+                    nbytes / 1e6)
+        return nbytes
+
+    def _resident_draws(self, generator, batch_size):
+        """The sample indices and horizontal flips of one resident step:
+        without replacement (a slice of a permutation) when batch_size <= n
+        <= 4096, else uniform with replacement; each flip with p 0.5."""
+        n = next(iter(self._dev_data.values())).shape[0]
+        if batch_size <= n <= 4096:
+            idx = torch.randperm(n, generator=generator,
+                                 device=self.device)[:batch_size]
+        else:
+            idx = torch.randint(0, n, (batch_size,), generator=generator,
+                                device=self.device)
+        flip = torch.rand(batch_size, generator=generator,
+                          device=self.device) < 0.5
+        return idx, flip
+
+    def sample_resident_batch(self, idx, flip):
+        """The batch of samples ``idx`` of the resident set, each flipped
+        left-right where ``flip``, scaled to min_max: NCHW float32 in
+        channels_last memory, as ``feed_data`` gives."""
+        lo, hi = self._dev_min_max
+        # x / 255 * (hi - lo) + lo as XLA compiles it: one float32 scale
+        # and one fused multiply-add
+        scale = float(np.float32(1 / 255) * np.float32(hi - lo))
+        idx = torch.as_tensor(idx, device=self.device)
+        flip = torch.as_tensor(flip, device=self.device).reshape(-1, 1, 1, 1)
+        out = {}
+        for k, v in self._dev_data.items():
+            x = v[idx].float()
+            x = torch.full_like(x, lo).add_(x, alpha=scale)
+            x = torch.where(flip, x.flip(2), x)
+            out[k] = x.permute(0, 3, 1, 2)
+        return out
+
+    def optimize_parameters_resident(self, batch_size, k_steps=1):
+        """``k_steps`` training steps on batches drawn on the device from the
+        resident set (``load_device_dataset`` first), with no host sync; the
+        log holds the last loss. Step s draws its batch, then its loss, from
+        a generator seeded from (seed, s)."""
+        if self._dev_data is None:
+            raise RuntimeError("load_device_dataset first")
+        g = self._resident_generator
+        for _ in range(k_steps):
+            g.manual_seed(fold_seed(self.seed, self.step))
+            batch = self.sample_resident_batch(
+                *self._resident_draws(g, batch_size))
+            self._train_step(batch, g)
 
     def _update_ema(self):
         """EMA of the parameters after the update: a copy before

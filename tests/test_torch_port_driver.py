@@ -157,7 +157,10 @@ def test_port_imports_no_jax(tmp_path):
         import sr3_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             sr3_tpu_torch.__path__, "sr3_tpu_torch.")]
-        assert {{"sr3_tpu_torch.sample", "sr3_tpu_torch.eval"}} <= set(names)
+        assert {{"sr3_tpu_torch.sample", "sr3_tpu_torch.eval",
+                 "sr3_tpu_torch.cascade", "sr3_tpu_torch.data.prepare",
+                 "sr3_tpu_torch.training.cascade",
+                 "sr3_tpu_torch.training.optim"}} <= set(names)
         for name in names:
             importlib.import_module(name)
         import chip_smoke
@@ -193,6 +196,26 @@ def test_port_imports_no_jax(tmp_path):
                   "SR": np.zeros((16, 16, 3), np.float32)}}] * 2
         train_loop(trainer, DataLoader(data, 2), opt, lambda s, e: None)
         assert trainer.step == 4 and os.path.isfile("I4_E4_gen.pth")
+        from sr3_tpu_torch.data.prepare import resize_and_convert
+        from sr3_tpu_torch.training.cascade import to_condition
+        assert resize_and_convert(np.zeros((20, 30, 3), np.uint8),
+                                  8).shape == (8, 8, 3)
+        assert to_condition(np.zeros((8, 8, 3)), 16).shape == (16, 16, 3)
+        opt["train"]["optimizer"]["mu_dtype"] = "bfloat16"
+        opt["datasets"]["train"]["device_data"] = True
+        opt["train"]["n_iter"] = 2
+        trainer = create_model(opt)
+        trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"])
+        uint8 = [{{"HR": np.zeros((16, 16, 3), np.uint8),
+                   "SR": np.zeros((16, 16, 3), np.uint8)}}] * 2
+
+        class Decoded(list):
+            def _decoded(self, i):
+                return self[i]
+
+        train_loop(trainer, DataLoader(Decoded(uint8), 2), opt,
+                   lambda s, e: None)
+        assert trainer.step == 2
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                          "orbax", "sr3_tpu")]

@@ -21,6 +21,7 @@ class FakeTrainer:
         self.steps_run = 0
         self.saves = []
         self.on_step = None
+        self.resident_calls = []
 
     def feed_data(self, data):
         self.data = data
@@ -29,6 +30,12 @@ class FakeTrainer:
         self.steps_run += 1
         if self.on_step:
             self.on_step(self.steps_run)
+
+    def load_device_dataset(self, dataset):
+        self.resident_set = dataset
+
+    def optimize_parameters_resident(self, batch_size, k_steps):
+        self.resident_calls.append((batch_size, k_steps))
 
     def get_current_log(self):
         return {"l_pix": self.loss}
@@ -106,12 +113,20 @@ def test_nan_guard_modes(mode, caplog):
 
 
 def test_zero_batches_and_device_data_raise():
+    """Zero host batches raise. device_data (ported since) does not: the
+    loop holds the loader's dataset on the device and runs K resident steps
+    a call, even when the loader has no batch (the resident draws take
+    samples with replacement), epochs counted in samples as the JAX loop
+    counts them."""
     with pytest.raises(ValueError, match="zero batches"):
         train_loop(FakeTrainer(), _loader(0), _opt(4), lambda s, e: None)
-    opt = _opt(4)
+    opt = _opt(5, spd=2, ckpt_freq=4)
     opt["datasets"] = {"train": {"device_data": True}}
-    with pytest.raises(NotImplementedError, match="device_data"):
-        train_loop(FakeTrainer(), _loader(4), opt, lambda s, e: None)
+    t, loader = FakeTrainer(), _loader(0)
+    train_loop(t, loader, opt, lambda s, e: None)
+    assert t.resident_set is loader.dataset and t.steps_run == 0
+    assert t.resident_calls == [(2, 2), (2, 2), (2, 1)]
+    assert t.saves == [(2, 4)]  # epoch 1 + 4 * 2 // 8
 
 
 def test_sigterm_checkpoints_and_stops():

@@ -407,9 +407,21 @@ def test_resume_restores_counters_optimizer_and_ema(tmp_path):
 
 
 def test_mu_dtype_bfloat16_is_not_ported():
+    """Since the bf16 first moment was ported (tests/test_torch_port_optim.py
+    holds it against optax) the option builds a trainer whose Adam keeps
+    exp_avg in bfloat16 and exp_avg_sq in float32; other dtypes raise."""
     opt = tiny_opt()
     opt["train"]["optimizer"]["mu_dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
+    trainer = create_model(opt, device="cpu")
+    trainer.set_new_noise_schedule(SCHED)
+    trainer.feed_data(batch(46))
+    trainer.optimize_parameters()
+    for p in trainer.netG.parameters():
+        state = trainer.optimizer.state[p]
+        assert state["exp_avg"].dtype == torch.bfloat16
+        assert state["exp_avg_sq"].dtype == torch.float32
+    opt["train"]["optimizer"]["mu_dtype"] = "float16"
+    with pytest.raises(ValueError, match="mu_dtype"):
         create_model(opt, device="cpu")
 
 
