@@ -83,7 +83,9 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      2; K4-K6 also at 16384 tokens) beside its plain version and the one
      PyTorch call that computes the same function where there is one
      (library_ms; the port never calls it), each as CUDA-event ms per call
-     and as the profiler's device ms per call; and the least time the card
+     and as device ms per call (20 calls queued behind a spin kernel, CUDA
+     events around them), the kernel's split by launch from the profiler
+     where it kept records; and the least time the card
      could take (bound_ms: the larger of bytes over 3.35 TB/s and operations
      over 989 TFLOP/s). Beside K1, cuDNN's conv3x3 alone at its shape (not
      the same function, so not library_ms); K2 also at the 16->128 training
@@ -149,10 +151,41 @@ Adam first moment and the device-resident dataset:
 After phase 29 the bf16 K1 tiles, and K2's (dtype, cluster size,
 residency), launched since phase 3 (the main paths and the timing) must
 all be ones that phase 3 checked.
+The parallel paths (sr3_tpu_torch/parallel), two ranks started through
+``torch.distributed.run --standalone``, each running ``chip_smoke.py
+--rank DIR BACKEND``: nccl with one card a rank where the machine has two or more,
+else gloo with both ranks on the one card (printed); every kernel runs on
+the card either way; the ranks' output is printed after them:
+ 30. collectives: all_reduce (SUM, MAX) and all_gather of float32,
+     bfloat16 and int64 CUDA tensors, each result checked;
+ 31. data = 2: sr_sr3_16_128 at full width, global batch 4 (2 a rank),
+     bf16, PAR_STEPS train steps, counters zeroed just before (K1, K2,
+     K4-K6 launched); the parameters' checksum after each step equal on
+     both ranks; ms a step and the all-reduced bytes; PAR_STEPS float32
+     steps with injected global draws (noise, sqrt-gamma, dropout masks):
+     every step's loss within 1e-4 of one process's (run here after the
+     ranks), and the first step's all-reduced gradients within 1e-4 of
+     each leaf's max|g| of one process's;
+ 32. model = 2: sr_sr3_16_128, the float32 forward of the sharded UNet
+     against the unsharded one on the same rank (1e-4); one bf16 train
+     step with EMA (K1, K2, K4-K6 launched); parameter + Adam + EMA bytes a
+     rank against one device's;
+ 33. space = 2: sr_sr3_64_512_attn, the batch-8 bf16 512^2 forward (2e-2)
+     and a batch-1 float32 one (1e-4) against the same module unsharded,
+     run first on the same rank; the loss and gradients of a batch-2 remat
+     step, float32 (1e-3) and bf16 (5e-2), against unsharded (the same
+     draws: every space rank draws the whole map's); K1's halo entry, K3
+     and K4-K6 launched; then the batch-8 1024^2 step of sr_sr3_128_1024;
+     peak memory a rank beside the unsharded run's; every K1 halo-entry
+     site of these runs held against its plain version, and every bf16
+     tile they launched among those checked;
+ 34. K1 halo entry timing: at a 512^2 serving shard (8x64x256x512->64)
+     beside its plain version and beside K1's own entry at that shape.
 
 Then one JSON line with every kernel's route, source, the TPU kernel it
-replaces, launches in phase 12 (and on the other paths: launches_* keys,
-each path's counters zeroed just before it), max error and times
+replaces, launches in phase 12 (K1's halo entry: in phase 33's 512^2
+forward; and on the other paths: launches_* keys, each path's counters
+zeroed just before it; the parallel paths from rank 0), max error and times
 (timings_sample_ddpm_128: phase 22; timings_128_1024: phase 29), and
 last the line {"ok": true,
 "device": {...}}. Without a CUDA
@@ -351,7 +384,15 @@ KERNELS = {
     "gn_stats": ("sr3_tpu_torch/csrc/gn_stats.cu",
                  "sr3_tpu/ops/groupnorm.py:66",
                  {"float32": FMA, "bfloat16": FMA}),
+    # K1's halo entry (an H-shard under the space axis): the conv launch of
+    # both routes with outside statistics and the neighbours' halo rows
+    "gn_silu_conv3x3_halo": ("sr3_tpu_torch/csrc/conv_fused.cu",
+                             "sr3_tpu/ops/conv_fused.py:117",
+                             {"float32": FMA, "bfloat16": WGMMA}),
 }
+# the kernels of the single-device paths (all but K1's halo entry)
+ONE_DEVICE_KERNELS = tuple(k for k in KERNELS
+                           if k != "gn_silu_conv3x3_halo")
 FORWARD_KERNELS = ("gn_silu_conv3x3", "group_norm", "flash_attention_fwd")
 KERNELS_16_128 = FORWARD_KERNELS + ("flash_attention_bwd_dkv",
                                     "flash_attention_bwd_dq")
@@ -752,7 +793,8 @@ def counters():
     from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
 
     return [conv_fused.counter, groupnorm.counter, groupnorm.stats_counter,
-            attention.counter, attention.dkv_counter, attention.dq_counter]
+            attention.counter, attention.dkv_counter, attention.dq_counter,
+            conv_fused.halo_counter]
 
 
 def launches_of(names):
@@ -1356,7 +1398,8 @@ def training_512_phase(torch):
         raise AssertionError("the 64->512 path trains at batch 2, bf16, "
                              "dropout 0.2, remat on")
     loader = _synthetic_batches(np, TRAIN_STEPS_512, b, seed=12, lr_size=64)
-    launches = _train_loop_checked(torch, trainer, opt, loader, KERNELS)
+    launches = _train_loop_checked(torch, trainer, opt, loader,
+                                   ONE_DEVICE_KERNELS)
     # remat runs every block's forward twice (once more in the backward)
     steps = TRAIN_STEPS_512
     expect = {"gn_stats": 2 * sites * steps,
@@ -1377,7 +1420,8 @@ def grad_check_512_phase(torch):
     into the UNet (GRAD_TOL); then remat on against remat off with the same
     draws (REMAT_TOL)."""
     net, loss_and_grads = _train_case(torch, CONFIG_512, 512, seed=13)
-    _kernels_vs_plain(torch, loss_and_grads, KERNELS, " remat on")
+    _kernels_vs_plain(torch, loss_and_grads, ONE_DEVICE_KERNELS,
+                      " remat on")
     # cuDNN's default conv backward sums with atomics, in an order that
     # changes from run to run; its deterministic algorithms keep the two
     # runs comparable
@@ -1621,14 +1665,16 @@ def _sdpa_backend(torch, fn):
                    if e.name.startswith("aten::_scaled_dot_product")})
 
 
-def _device_by_kernel(torch, fn, n=5, tries=4):
+def _device_by_kernel(torch, fn, n=5, tries=4, required=True):
     """{kernel name: (device ms per launch, launches per call)} of ``fn``
     from a torch.profiler window over n calls, after one warm-up. The
-    profiler on this card drops a kernel's record now and then, whole: a
-    launch's time is the mean over the records kept, and a window whose
-    records do not come to a whole number per call is taken again, up to
-    ``tries`` times (the fullest is kept), its launches per call rounded
-    and at least 1 for a kernel seen."""
+    profiler on this card drops records now and then, more of them late in
+    a long process (whole windows there): a window whose records do not
+    come to a whole number per call is taken again, up to ``tries`` times
+    (the fullest is kept); a launch's time is the mean over the records
+    kept, its launches per call rounded and at least 1 for a kernel seen.
+    When no window kept a record, it raises (``required``) or returns
+    None: never a count that was not seen."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1650,6 +1696,11 @@ def _device_by_kernel(torch, fn, n=5, tries=4):
             best = got
         if got and all(k % n == 0 for _, k in got.values()):
             break
+    if not best:
+        if required:
+            raise AssertionError(f"the profiler kept no record of the "
+                                 f"call's kernels in {tries} windows")
+        return None
     return {name: (t / k, max(1, round(k / n)))
             for name, (t, k) in best.items()}
 
@@ -1659,11 +1710,50 @@ def _call_ms(by):
     return sum(ms * k for ms, k in by.values())
 
 
-def _device_ms(torch, fn, n=5):
-    """Device time per call of ``fn`` (the sum of its kernels' durations in
-    a torch.profiler window over n calls, after one warm-up): without the
-    host's launch gaps that CUDA events around a call include."""
-    return _call_ms(_device_by_kernel(torch, fn, n))
+_SPIN = {}  # spin-kernel clock cycles per ms, measured at first use
+
+
+def _device_ms(torch, fn, n=20, required=False):
+    """Device ms per call of ``fn``, without the profiler: n calls queued
+    behind a spin kernel (``torch.cuda._sleep``) that keeps the card busy
+    until the host has enqueued them all, then CUDA events around the n
+    calls time the card alone, without the host's launch gaps. The spin
+    doubles (from 20 ms) until the host's enqueue takes under 80% of it;
+    when it never does (a call that waits for the card), it raises
+    (``required``) or returns None (not measured)."""
+    if "per_ms" not in _SPIN:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(10 ** 7)
+        b.record()
+        b.synchronize()
+        _SPIN["per_ms"] = 10 ** 7 / a.elapsed_time(b)
+    fn()
+    spin_ms = 20.0
+    for _ in range(6):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * _SPIN["per_ms"]))
+        h0 = time.perf_counter()
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        host_ms = 1000 * (time.perf_counter() - h0)
+        e1.synchronize()
+        if host_ms < 0.8 * spin_ms:
+            return e0.elapsed_time(e1) / n
+        spin_ms *= 2
+    if required:
+        raise AssertionError(f"the host took {host_ms:.1f} ms to enqueue {n} "
+                             f"calls, longer than a {spin_ms / 2:.0f} ms spin")
+    return None
+
+
+def _show(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def _short(name):
@@ -1749,32 +1839,38 @@ def gn_launch_phase(torch):
 
 def _time_entry(torch, name, shape, fn, plain, library, flops, nbytes):
     """One kernel call ``fn`` beside its plain version and the library call
-    (None where there is none): CUDA-event ms and the profiler's device ms
-    of each, the kernel's device launches a call, and the least time the
-    card could take for ``flops`` bf16 operations and ``nbytes`` moved
-    (bound_ms). Printed; returns the record."""
+    (None where there is none): CUDA-event ms around single calls and the
+    device ms of queued calls (``_device_ms``; the kernel's must be
+    measured) of each; the kernel's device launches a call and their split
+    by kernel from the profiler (None when it kept no record: not
+    measured); and the least time the card could take for ``flops`` bf16
+    operations and ``nbytes`` moved (bound_ms). Printed; returns the
+    record."""
     fns = {"": fn, "plain_": plain, "library_": library}
     t = {}
     for key, f in fns.items():
         t[key + "ms"] = None if f is None else _time_ms(torch, f, n=5)
-        t[key + "device_ms"] = None if f is None or not key else \
-            _device_ms(torch, f)
-    kernels = _device_by_kernel(torch, fn)
-    t["device_ms"] = _call_ms(kernels)
-    t["device_launches_per_call"] = sum(k for _, k in kernels.values())
+        t[key + "device_ms"] = None if f is None else \
+            _device_ms(torch, f, required=not key)
+    kernels = _device_by_kernel(torch, fn, required=False)
+    t["device_launches_per_call"] = None if kernels is None else \
+        sum(k for _, k in kernels.values())
+    t["profiler_device_ms"] = None if kernels is None else _call_ms(kernels)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     bound_ms = 1000 * max(t_ops, t_bytes)
     by = "operations" if t_ops > t_bytes else "bytes"
-    print(f"  {name} {shape}: device kernels a call: " + ", ".join(
-        f"{_short(k)} {ms:.4f} ms x{n}"
-        for k, (ms, n) in kernels.items()), flush=True)
-    show = lambda k: "none" if t[k] is None else f"{t[k]:.4f}"
+    print(f"  {name} {shape}: device kernels a call (profiler): " + (
+        "not measured (no record kept)" if kernels is None else ", ".join(
+            f"{_short(k)} {ms:.4f} ms x{n}"
+            for k, (ms, n) in kernels.items())), flush=True)
+    show = lambda k: "none" if fns[k.removesuffix("device_ms")
+                                   .removesuffix("ms")] is None \
+        else _show(t[k])
     print(f"  {name} {shape} bf16, ms (events / device): kernel "
           f"{show('ms')} / {show('device_ms')}, plain {show('plain_ms')} / "
           f"{show('plain_device_ms')}, library {show('library_ms')} / "
           f"{show('library_device_ms')}; bound {bound_ms:.4f} ({by}; "
-          f"kernel device time {t['device_ms'] / bound_ms:.1f}x)",
-          flush=True)
+          f"kernel device time {t['device_ms'] / bound_ms:.1f}x)", flush=True)
     return {**t, "bound_ms": bound_ms, "bound_by": by, "shape": shape}
 
 
@@ -1812,7 +1908,7 @@ def kernel_timing_512_phase(torch):
     print(f"  cuDNN F.conv2d alone (the conv only, bf16 channels_last) "
           f"{b}x64x512x512->64, ms (events / device): "
           f"{alone['cudnn_conv_alone_ms']:.4f} / "
-          f"{alone['cudnn_conv_alone_device_ms']:.4f}", flush=True)
+          f"{_show(alone['cudnn_conv_alone_device_ms'])}", flush=True)
     del args, kw, x, w
     x = torch.randn(b, 512, 64, 64, device="cuda", generator=g)
     x = x.to(dt).contiguous(memory_format=cl)
@@ -2249,7 +2345,7 @@ def kernel_timing_ddpm_128_phase(torch):
     out["gn_silu_conv3x3"][shape].update(alone)
     print(f"  cuDNN F.conv2d alone {b}x{cin}x{hw}x{hw}->{cout}, ms (events "
           f"/ device): {alone['cudnn_conv_alone_ms']:.4f} / "
-          f"{alone['cudnn_conv_alone_device_ms']:.4f}", flush=True)
+          f"{_show(alone['cudnn_conv_alone_device_ms'])}", flush=True)
     for _, seq, d in BWD_SHAPES_DDPM_128:
         _attention_entries(torch, g, entry, b, seq, d)
     return out
@@ -2376,7 +2472,8 @@ def training_1024_phase(torch):
     loader = _synthetic_batches(np, TRAIN_STEPS_1024, b, seed=32,
                                 lr_size=128)
     torch.cuda.reset_peak_memory_stats()
-    launches = _train_loop_checked(torch, trainer, opt, loader, KERNELS)
+    launches = _train_loop_checked(torch, trainer, opt, loader,
+                                   ONE_DEVICE_KERNELS)
     steps = TRAIN_STEPS_1024
     expect = {"gn_stats": 2 * sites * steps,
               "flash_attention_fwd": 2 * n_attn * steps,
@@ -2649,7 +2746,7 @@ def kernel_timing_1024_phase(torch):
         out["gn_silu_conv3x3"][shape].update(alone)
         print(f"  cuDNN F.conv2d alone {b}x{cin}x{hw}x{hw}->64, ms (events "
               f"/ device): {alone['cudnn_conv_alone_ms']:.4f} / "
-              f"{alone['cudnn_conv_alone_device_ms']:.4f}", flush=True)
+              f"{_show(alone['cudnn_conv_alone_device_ms'])}", flush=True)
         del args, kw, x, w
         torch.cuda.empty_cache()
     x = torch.randn(2, 64, hw, hw, device="cuda", generator=g)
@@ -2663,6 +2760,624 @@ def kernel_timing_1024_phase(torch):
     for bh, seq, d in ((2, 1024, 512), (8, 1024, 512), (8, 256, 512),
                        (8, 64, 512)):
         _attention_entries(torch, g, entry, bh, seq, d)
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# The parallel phases (30-33): two ranks started by parallel_phase through
+# torch.distributed.run, each running ``chip_smoke.py --rank DIR
+# BACKEND`` (rank_main): nccl with one card a rank where the machine has two
+# or more, else gloo with both ranks on the one card.
+
+PAR_RANKS = 2
+PAR_STEPS = 3
+PAR_TIMEOUT = 420
+SPACE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SPACE_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+KERNELS_SPACE = ("gn_silu_conv3x3_halo", "gn_stats", "flash_attention_fwd")
+KERNELS_SPACE_TRAIN = KERNELS_SPACE + ("flash_attention_bwd_dkv",
+                                       "flash_attention_bwd_dq")
+
+
+def _rank_print(*a):
+    print(f"[rank {os.environ.get('RANK')}]", *a, flush=True)
+
+
+def _sha(torch, tensors):
+    """sha256 of the bytes of ``tensors`` (a bit-equality checksum)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def rank_collectives(torch, dist, device, backend):
+    """The collectives the port uses (all_reduce SUM and MAX, all_gather,
+    barrier) on tensors on the card, each result checked."""
+    r, n = dist.get_rank(), dist.get_world_size()
+    for dt in (torch.float32, torch.bfloat16, torch.int64):
+        t = torch.full((5, 3), r + 1, dtype=dt, device=device)
+        dist.all_reduce(t)
+        want = n * (n + 1) / 2
+        parts = [torch.empty(4, dtype=dt, device=device) for _ in range(n)]
+        dist.all_gather(parts, torch.full((4,), r, dtype=dt, device=device))
+        ok = (t.float() == want).all().item() and all(
+            (p.float() == i).all().item() for i, p in enumerate(parts))
+        if not ok:
+            raise AssertionError(f"{backend} collectives on {dt} CUDA "
+                                 f"tensors gave wrong results")
+    t = torch.tensor([r], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.barrier()
+    _rank_print(f"{backend}: all_reduce (SUM, MAX) and all_gather of "
+                f"float32 / bfloat16 / int64 tensors on {device}: ok")
+
+
+def _injected(torch, b, size, seed, rows):
+    """Global seeded draws of a b-image batch (noise, sqrt-gamma) cut to
+    ``rows``, and a dropout_mask stand-in drawing call k's global mask from
+    seed + k and cutting it to ``rows``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn(b, 3, size, size, device="cuda", generator=g)
+    gamma = 0.4 + 0.5 * torch.rand(b, 1, device="cuda", generator=g)
+    calls = [0]
+
+    def mask(x, keep, generator=None):
+        calls[0] += 1
+        gm = torch.Generator(device="cuda").manual_seed(seed + calls[0])
+        shape = (b,) + tuple(x.shape[1:])
+        return (torch.rand(shape, device="cuda", generator=gm) < keep)[rows]
+
+    return {"noise": noise[rows].contiguous(),
+            "sqrt_gamma": gamma[rows].contiguous()}, mask
+
+
+def _injected_loss(torch, trainer, batch, rows, seed):
+    """One float32 optimize_parameters step with injected global draws cut
+    to ``rows``; returns the logged loss (the data-group mean)."""
+    import functools
+
+    from sr3_tpu_torch.ops import dropout as port_dropout
+
+    injected, mask = _injected(torch, 4, 128, seed, rows)
+    saved = port_dropout.dropout_mask
+    port_dropout.dropout_mask = mask
+    trainer.diffusion.p_losses = functools.partial(
+        trainer.diffusion.p_losses, injected=injected)
+    try:
+        trainer.feed_data(batch)
+        trainer.optimize_parameters()
+    finally:
+        port_dropout.dropout_mask = saved
+        del trainer.diffusion.p_losses
+    return trainer.get_current_log()["l_pix"]
+
+
+def _grads(trainer):
+    """{name: float32 gradient on the host} of the trainer's UNet."""
+    return {n: p.grad.detach().float().cpu()
+            for n, p in trainer.netG.named_parameters() if p.grad is not None}
+
+
+def rank_data(torch, backend, device, out_dir):
+    """sr_sr3_16_128 at full width under data = 2: global batch 4 (2 a
+    rank), bf16, PAR_STEPS train steps; per step the parameters' checksum,
+    the data-mean loss, ms and the all-reduced bytes; then PAR_STEPS
+    float32 steps with injected global draws: their losses, and the
+    primary saves the all-reduced gradients of the first to
+    ``out_dir/grads_data2.pt`` (both against one process's)."""
+    import numpy as np
+
+    from sr3_tpu_torch.parallel.mesh import init_mesh, shard_batch
+    from sr3_tpu_torch.training.trainer import create_model
+
+    mesh = init_mesh({"data": 2}, backend=backend, device=device)
+    _rank_print(f"data phase: {mesh}")
+    opt = _load_opt(phase="train", config=CONFIG)
+    opt["parallel"] = {"data": 2}
+    trainer = create_model(opt, mesh=mesh)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   "train")
+    batches = _synthetic_batches(np, PAR_STEPS, 4, seed=30)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters():
+        c.n = 0
+    sums, losses, ms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.feed_data(shard_batch(b, mesh))
+        trainer.optimize_parameters()
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+        losses.append(trainer.get_current_log()["l_pix"])
+        sums.append(_sha(torch, trainer.netG.parameters()))
+    launches = launches_of(KERNELS_16_128)
+    out = {"checksums": sums, "losses": losses, "ms": ms,
+           "reduced_bytes": trainer.reduced_bytes, "launches": launches,
+           "peak_gib": _peak_gib(torch)}
+    _rank_print(f"  bf16 train steps at 2 a rank: losses {losses}; ms "
+                f"{[round(x, 1) for x in ms]}; all-reduced "
+                f"{trainer.reduced_bytes / 1e6:.1f} MB a step; checksums "
+                f"{sums}; peak {out['peak_gib']:.2f} GiB; launches {launches}")
+    if min(launches.values()) <= 0 or not np.isfinite(losses).all():
+        raise AssertionError(f"data phase: launches {launches}, losses "
+                             f"{losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    opt = _load_opt(dtype="float32", phase="train", config=CONFIG)
+    opt["parallel"] = {"data": 2}
+    trainer = create_model(opt, mesh=mesh)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   "train")
+    rows = slice(2 * mesh.data.rank, 2 * mesh.data.rank + 2)
+    out["f32_losses"] = []
+    for i, b in enumerate(batches):
+        out["f32_losses"].append(_injected_loss(
+            torch, trainer, shard_batch(b, mesh), rows, 31 + 100 * i))
+        if i == 0 and mesh.is_primary:
+            torch.save(_grads(trainer),
+                       os.path.join(out_dir, "grads_data2.pt"))
+    _rank_print(f"  float32 steps with injected global draws: losses "
+                f"{out['f32_losses']}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _state_bytes(trainer):
+    """Bytes of the parameters, the Adam moments and the EMA."""
+    n = sum(p.numel() * p.element_size() for p in trainer.netG.parameters())
+    n += sum(t.numel() * t.element_size()
+             for st in trainer.optimizer.state.values()
+             for t in st.values() if t.dim() > 0)
+    if trainer.ema is not None:
+        n += sum(t.numel() * t.element_size() for t in trainer.ema.values())
+    return n
+
+
+def rank_model(torch, backend, device):
+    """sr_sr3_16_128 under model = 2: the float32 forward of the sharded
+    UNet against the unsharded one (FORWARD_TOL_MODEL), one bf16 train
+    step with EMA, and the parameter + Adam + EMA bytes a rank."""
+    import numpy as np
+
+    from sr3_tpu_torch.models.networks import count_params, define_G
+    from sr3_tpu_torch.parallel.mesh import init_mesh
+    from sr3_tpu_torch.training.trainer import create_model
+
+    mesh = init_mesh({"model": 2}, backend=backend, device=device)
+    _rank_print(f"model phase: {mesh}")
+    net = define_G(_load_opt(dtype="float32", config=CONFIG),
+                   device=device, seed=0).denoise_fn
+    n_full = count_params(net)
+    g = torch.Generator(device="cuda").manual_seed(40)
+    x = torch.randn(2, 6, 128, 128, device="cuda", generator=g)
+    cond = torch.tensor([0.3, 0.8], device="cuda")
+    with torch.inference_mode():
+        ref = net(x, cond)
+    net.set_parallel(mesh)
+    for c in counters():
+        c.n = 0
+    with torch.inference_mode():
+        got = net(x, cond)
+    launches = launches_of(FORWARD_KERNELS)
+    rel, _ = rel_err(got, ref)
+    _rank_print(f"  float32 forward B=2, sharded against unsharded: rel "
+                f"{rel:.3e} tol {SPACE_TOL['float32']:g}; launches "
+                f"{launches}; {count_params(net):,d} of {n_full:,d} "
+                f"parameters on this rank")
+    if not rel <= SPACE_TOL["float32"] or min(launches.values()) <= 0:
+        raise AssertionError(f"model forward: rel {rel}, {launches}")
+    del net, ref, got
+    opt = _load_opt(phase="train", config=CONFIG)
+    opt["parallel"] = {"model": 2}
+    opt["train"]["ema_scheduler"] = {"use_ema": True, "ema_decay": 0.9999,
+                                     "step_start_ema": 0}
+    trainer = create_model(opt, mesh=mesh)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   "train")
+    (b,) = _synthetic_batches(np, 1, 4, seed=41)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters():
+        c.n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.feed_data(b)
+    trainer.optimize_parameters()
+    loss = trainer.get_current_log()["l_pix"]
+    torch.cuda.synchronize()
+    ms = 1000 * (time.perf_counter() - t0)
+    train_launches = launches_of(KERNELS_16_128)
+    state = _state_bytes(trainer)
+    full = n_full * (4 + 8 + 4)
+    out = {"forward_rel": rel, "launches": train_launches, "ms": ms,
+           "loss": loss, "state_bytes": state, "full_state_bytes": full,
+           "peak_gib": _peak_gib(torch), "forward_launches": launches}
+    _rank_print(f"  bf16 train step, batch 4: loss {loss:.5f}, {ms:.1f} ms "
+                f"(first step), peak {out['peak_gib']:.2f} GiB; parameter + "
+                f"Adam + EMA {state / 1e6:.1f} MB a rank against "
+                f"{full / 1e6:.1f} MB on one device; launches "
+                f"{train_launches}")
+    if not np.isfinite(loss) or min(train_launches.values()) <= 0:
+        raise AssertionError(f"model step: loss {loss}, {train_launches}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _halo_recorder(conv_fused):
+    """Wrap K1's halo entry so that each (shape, C_out, dtype, halo rows,
+    residual, bias) it launches with is recorded; returns the record."""
+    seen = {}
+    launch = conv_fused._fwd_halo
+
+    def recorded(x, top, bottom, mult, add, weight, bias, residual):
+        key = (tuple(x.shape), int(weight.shape[0]), str(x.dtype)[6:],
+               top is not None, bottom is not None, residual is not None)
+        seen[key] = seen.get(key, 0) + 1
+        return launch(x, top, bottom, mult, add, weight, bias, residual)
+
+    conv_fused._fwd_halo = recorded
+    return seen, launch
+
+
+def _check_halo_sites(torch, conv_fused, launch, seen, errs):
+    """Every recorded halo-entry site against the plain version on seeded
+    inputs of its shape (error relative to max|plain| within SPACE_TOL);
+    returns the bf16 tiles those checks launched."""
+    checked = {}
+    g = torch.Generator(device="cuda").manual_seed(50)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    cl = torch.channels_last
+    for (shape, cout, dt, top, bottom, res), n in sorted(seen.items()):
+        dtype = getattr(torch, dt)
+        b, cin, h, w = shape
+        row = lambda on: (r(b, cin, 1, w).to(dtype).contiguous(
+            memory_format=cl) if on else None)
+        args = (r(*shape).to(dtype).contiguous(memory_format=cl), row(top),
+                row(bottom), 1 + 0.3 * r(b, cin), 0.2 * r(b, cin),
+                (r(cout, cin, 3, 3) / (3 * cin ** 0.5)).to(dtype)
+                .contiguous(memory_format=cl), 0.1 * r(cout),
+                r(b, cout, h, w).to(dtype).contiguous(memory_format=cl)
+                if res else None)
+        conv_fused.bf16_tile_launches(reset=True)
+        out = launch(*args)
+        ref = conv_fused.gn_silu_conv3x3_halo_plain(*args)
+        torch.cuda.synchronize()
+        for k, v in conv_fused.bf16_tile_launches().items():
+            if v:
+                checked[k] = True
+        rel, absd = rel_err(out, ref)
+        e = errs.setdefault(dt, [0.0, 0.0, 0])
+        e[0], e[1], e[2] = max(e[0], absd), max(e[1], rel), e[2] + 1
+        ok = rel <= SPACE_TOL[dt]
+        _rank_print(f"  halo K1 {dt} {b}x{cin}x{h}x{w}->{cout} top {top} "
+                    f"bottom {bottom} ({n} launches on the paths): rel "
+                    f"{rel:.3e} abs {absd:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"halo K1 {dt} {shape}->{cout}: rel {rel}")
+        del args, out, ref
+    return set(checked)
+
+
+def _space_grads(torch, diffusion, sched, batch, seed):
+    """(loss, {name: gradient}) of one p_losses with a generator of
+    ``seed``; on a space mesh the gradients summed over the ranks."""
+    import torch.distributed as dist
+
+    net = diffusion.denoise_fn.train()
+    net.zero_grad(set_to_none=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    loss = diffusion.p_losses(net, sched, batch, g)
+    loss.backward()
+    grads = {n: p.grad for n, p in net.named_parameters()}
+    if net.space is not None:
+        for t in grads.values():
+            dist.all_reduce(t, group=net.space.group)
+    return loss.item(), grads
+
+
+def rank_space(torch, backend, device):
+    """sr_sr3_64_512_attn under space = 2 (and the batch-8 1024^2 step of
+    sr_sr3_128_1024): every forward and step against the same module
+    unsharded, run first on the same rank; every halo-entry site checked
+    against the plain version; peak memory a rank."""
+    import numpy as np
+
+    from sr3_tpu_torch.models.networks import define_G
+    from sr3_tpu_torch.models.schedule import make_schedule
+    from sr3_tpu_torch.ops import conv_fused
+    from sr3_tpu_torch.parallel.mesh import init_mesh
+
+    mesh = init_mesh({"space": 2}, backend=backend, device=device)
+    _rank_print(f"space phase: {mesh}")
+    seen, launch = _halo_recorder(conv_fused)
+    used = set()  # the bf16 tiles the sharded runs launched
+
+    def tiles():
+        return {k for k, v in conv_fused.bf16_tile_launches(reset=True)
+                .items() if v}
+
+    out, cl = {}, torch.channels_last
+    g = torch.Generator(device="cuda").manual_seed(60)
+    for dt, b in (("bfloat16", 8), ("float32", 1)):
+        opt = _load_opt(dtype=dt, phase="train", config=CONFIG_512)
+        diffusion = define_G(opt, device=device, seed=0)
+        net = diffusion.denoise_fn.eval()
+        x = torch.randn(b, 6, 512, 512, device="cuda", generator=g)
+        cond = torch.rand(b, device="cuda", generator=g)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ref = net(x, cond)
+        ref_peak = _peak_gib(torch)
+        sched = make_schedule(opt["model"]["beta_schedule"]["train"],
+                              "cuda")
+        batch = {k: (torch.rand(2, 3, 512, 512, device="cuda", generator=g)
+                     * 2 - 1).contiguous(memory_format=cl)
+                 for k in ("HR", "SR")}
+        torch.cuda.reset_peak_memory_stats()
+        ref_grads = _space_grads(torch, diffusion, sched, batch, 61)
+        ref_train_peak = _peak_gib(torch)
+        net.set_parallel(mesh)
+        net.eval()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters():
+            c.n = 0
+        tiles()
+        with torch.inference_mode():
+            got = net(x, cond)
+        serving = launches_of(KERNELS_SPACE)
+        rel, _ = rel_err(got, ref)
+        key = f"{dt}_b{b}"
+        out[key] = {"rel": rel, "launches": serving,
+                    "peak_gib": _peak_gib(torch),
+                    "unsharded_peak_gib": ref_peak}
+        if dt == "bfloat16":
+            with torch.inference_mode():
+                step = _time_each(torch, lambda: net(x, cond), 3)
+            out[key]["ms"] = step
+        used |= tiles()
+        _rank_print(f"  {dt} forward B={b} at 512^2, sharded against "
+                    f"unsharded: rel {rel:.3e} tol {SPACE_TOL[dt]:g}; peak "
+                    f"{out[key]['peak_gib']:.2f} GiB (unsharded "
+                    f"{ref_peak:.2f}); ms "
+                    f"{out[key].get('ms')}; launches {serving}")
+        if not rel <= SPACE_TOL[dt] or min(serving.values()) <= 0:
+            raise AssertionError(f"space forward {dt}: rel {rel}, {serving}")
+        del ref, got
+        for c in counters():
+            c.n = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = _space_grads(torch, diffusion, sched, batch, 61)
+        torch.cuda.synchronize()
+        train_ms = 1000 * (time.perf_counter() - t0)
+        train = launches_of(KERNELS_SPACE_TRAIN)
+        used |= tiles()
+        loss_rel, worst, worst_rel = _compare_grads((loss, grads), ref_grads)
+        out[f"{dt}_train"] = {"loss_rel": loss_rel, "worst_rel": worst_rel,
+                              "launches": train, "ms": train_ms,
+                              "peak_gib": _peak_gib(torch),
+                              "unsharded_peak_gib": ref_train_peak}
+        _rank_print(f"  {dt} loss and backward, batch 2, remat, sharded "
+                    f"against unsharded: loss rel {loss_rel:.3e}, worst of "
+                    f"{len(grads)} gradients {worst} rel {worst_rel:.3e} tol "
+                    f"{SPACE_GRAD_TOL[dt]:g}; {train_ms:.1f} ms, peak "
+                    f"{_peak_gib(torch):.2f} GiB (unsharded "
+                    f"{ref_train_peak:.2f}); launches {train}")
+        if not (loss_rel <= SPACE_GRAD_TOL[dt]
+                and worst_rel <= SPACE_GRAD_TOL[dt]) or \
+                min(train.values()) <= 0:
+            raise AssertionError(f"space gradients {dt}: {loss_rel}, {worst} "
+                                 f"{worst_rel}, {train}")
+        del diffusion, net, grads, ref_grads, batch
+        torch.cuda.empty_cache()
+    # the 128->1024 batch-8 step
+    opt = _load_opt(dtype="bfloat16", config=CONFIG_1024)
+    net = define_G(opt, device=device, seed=0).denoise_fn.eval()
+    net.set_parallel(mesh)
+    x = torch.randn(8, 6, 1024, 1024, device="cuda", generator=g)
+    cond = torch.rand(8, device="cuda", generator=g)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters():
+        c.n = 0
+    tiles()
+    with torch.inference_mode():
+        y = net(x, cond)
+        launches = launches_of(KERNELS_SPACE)
+        step = _time_each(torch, lambda: net(x, cond), 2)
+    used |= tiles()
+    out["1024"] = {"launches": launches, "ms": step,
+                   "peak_gib": _peak_gib(torch),
+                   "finite": bool(torch.isfinite(y).all().item())}
+    _rank_print(f"  bf16 batch-8 1024^2 UNet step under space 2: ms "
+                f"{[round(s, 2) for s in step]}, peak {_peak_gib(torch):.2f} "
+                f"GiB a rank (one device: 8.24 GiB, PERF.md); launches "
+                f"{launches}")
+    if not out["1024"]["finite"] or min(launches.values()) <= 0:
+        raise AssertionError(f"1024 step: {out['1024']}")
+    del net, x, y
+    torch.cuda.empty_cache()
+    errs = {}
+    conv_fused._fwd_halo = launch
+    checked = _check_halo_sites(torch, conv_fused, launch, seen, errs)
+    out["halo"] = {"sites": len(seen), "errs": errs,
+                   "tiles_used": sorted(used), "tiles_checked":
+                   sorted(checked)}
+    if not used <= checked:
+        raise AssertionError(f"halo K1 tiles launched but not checked: "
+                             f"{used - checked}")
+    return out
+
+
+def rank_main(out_dir, backend):
+    """One rank of the parallel phases (started by parallel_phase)."""
+    import torch
+    import torch.distributed as dist
+
+    local = int(os.environ["LOCAL_RANK"])
+    device = torch.device("cuda", local if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sr3_tpu_torch.ops import _build
+
+    _build.load_library()
+    dist.init_process_group(backend, init_method="env://")
+    _rank_print(f"{backend}, {dist.get_world_size()} ranks, this one on "
+                f"{device} ({torch.cuda.get_device_name(device)})")
+    rank_collectives(torch, dist, device, backend)
+    res = {"data": rank_data(torch, backend, device, out_dir),
+           "model": rank_model(torch, backend, device),
+           "space": rank_space(torch, backend, device)}
+    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(out_dir, backend):
+    """``chip_smoke.py --rank out_dir backend`` on PAR_RANKS local ranks
+    through ``torch.distributed.run --standalone`` (which stops the other
+    ranks when one fails); prints their output, raises if one failed. The
+    whole process group is killed after PAR_TIMEOUT seconds."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={PAR_RANKS}", os.path.abspath(__file__),
+           "--rank", out_dir, backend]
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1)
+                                       // PAR_RANKS)))
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=PAR_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        print(text[-8000:], flush=True)
+        raise AssertionError(f"ranks still running after {PAR_TIMEOUT} s")
+    print(text, end="", flush=True)
+    if proc.returncode:
+        raise AssertionError(f"the ranks exited with {proc.returncode}")
+
+
+@phase("parallel ranks")
+def parallel_phase(torch):
+    """Phases 30-33: two ranks (rank_main) run the data-parallel,
+    tensor-parallel and spatial paths; their output is printed here and
+    their results held against each other and against one process."""
+    import tempfile
+
+    import numpy as np
+
+    n = torch.cuda.device_count()
+    backend = "nccl" if n >= PAR_RANKS else "gloo"
+    print(f"  {PAR_RANKS} ranks over {backend}: " + (
+        "one card each" if backend == "nccl" else
+        f"both on the one card ({torch.cuda.get_device_name(0)})"),
+        flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        _run_ranks(tmp, backend)
+        res = []
+        for r in range(PAR_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        grads_data2 = torch.load(os.path.join(tmp, "grads_data2.pt"))
+    data = [r["data"] for r in res]
+    if data[0]["checksums"] != data[1]["checksums"]:
+        raise AssertionError(f"parameters differ across data ranks: "
+                             f"{[d['checksums'] for d in data]}")
+    print(f"  data: parameters bit-equal across ranks after each of "
+          f"{PAR_STEPS} steps ({data[0]['checksums']})", flush=True)
+    # one process, the same injected global draws, float32: every step's
+    # loss, and the first step's gradients (Adam's update does not see a
+    # reduction that forgets to divide, the gradients do)
+    from sr3_tpu_torch.training.trainer import create_model
+
+    opt = _load_opt(dtype="float32", phase="train", config=CONFIG)
+    trainer = create_model(opt)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   "train")
+    ones = []
+    for i, b in enumerate(_synthetic_batches(np, PAR_STEPS, 4, seed=30)):
+        ones.append(_injected_loss(torch, trainer, b, slice(0, 4),
+                                   31 + 100 * i))
+        if i == 0:
+            grads_one = _grads(trainer)
+    rels = [abs(a - b) / abs(b) for a, b in zip(data[0]["f32_losses"], ones)]
+    print(f"  data: float32 losses over 2 ranks {data[0]['f32_losses']} "
+          f"against one process {ones}: rel {[f'{r:.3e}' for r in rels]} "
+          f"tol 1e-4", flush=True)
+    if set(grads_data2) != set(grads_one):
+        raise AssertionError(f"data-parallel gradients: leaves differ: "
+                             f"{set(grads_data2) ^ set(grads_one)}")
+    worst, where = 0.0, None
+    for name, g in grads_one.items():
+        rel = float((grads_data2[name] - g).abs().max()
+                    / g.abs().max().clamp_min(1e-30))
+        if rel >= worst:
+            worst, where = rel, name
+    print(f"  data: float32 all-reduced gradients of step 1 against one "
+          f"process: worst of {len(grads_one)} leaves {where} rel "
+          f"{worst:.3e} of its max|g|, tol 1e-4", flush=True)
+    if not (len(rels) == PAR_STEPS and max(rels) <= 1e-4 and worst <= 1e-4):
+        raise AssertionError(f"data-parallel float32 steps: loss rel {rels}, "
+                             f"gradient rel {worst} ({where})")
+    del trainer
+    torch.cuda.empty_cache()
+    return res[0], backend
+
+
+@phase("K1 halo entry timing")
+def halo_timing_phase(torch):
+    """K1's halo entry at a 64->512 serving shard under space = 2 (bf16,
+    8x64x256x512->64, both halo rows, residual) beside its plain version
+    and beside K1's own entry (its statistics launch and conv) on a map of
+    the shard's shape; bound_ms as the other kernels'."""
+    from sr3_tpu_torch.ops import conv_fused
+
+    g = torch.Generator(device="cuda").manual_seed(70)
+    dt, cl = torch.bfloat16, torch.channels_last
+    b, cin, cout, h, w = 8, 64, 64, 256, 512
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    row = lambda: r(b, cin, 1, w).to(dt).contiguous(memory_format=cl)
+    wt = (r(cout, cin, 3, 3) / (3 * cin ** 0.5)).to(dt).contiguous(
+        memory_format=cl)
+    x = r(b, cin, h, w).to(dt).contiguous(memory_format=cl)
+    res = r(b, cout, h, w).to(dt).contiguous(memory_format=cl)
+    args = (x, row(), row(), 1 + 0.3 * r(b, cin), 0.2 * r(b, cin), wt,
+            0.1 * r(cout), res)
+    shape = f"{b}x{cin}x{h}x{w}->{cout} +halo rows+residual"
+    flops = 2 * b * h * w * cin * cout * 9
+    nbytes = 2 * (b * h * w * (cin + 2 * cout) + 2 * b * w * cin
+                  + cout * 9 * cin) + 4 * (2 * b * cin + cout)
+    out = _time_entry(torch, "gn_silu_conv3x3_halo", shape,
+                      lambda: conv_fused.gn_silu_conv3x3_halo(*args),
+                      lambda: conv_fused.gn_silu_conv3x3_halo_plain(*args),
+                      None, flops, nbytes)
+    gw, gb = 1 + 0.2 * r(cin), 0.1 * r(cin)
+    pb = 0.5 * r(b, cin)
+    k1 = _time_entry(
+        torch, "gn_silu_conv3x3 (its own entry, same shape)",
+        f"{b}x{cin}x{h}x{w}->{cout} +film+residual",
+        lambda: conv_fused.gn_silu_conv3x3(x, gw, gb, wt, args[6], 16,
+                                           pre_bias=pb, residual=res),
+        lambda: conv_fused.gn_silu_conv3x3_plain(x, gw, gb, wt, args[6], 16,
+                                                 pre_bias=pb, residual=res),
+        None, flops, nbytes - 4 * b * w * cin)
+    out["k1_same_shape_ms"] = k1["ms"]
+    out["k1_same_shape_device_ms"] = k1["device_ms"]
     return out
 
 
@@ -2717,15 +3432,31 @@ def main():
         timings_1024 = kernel_timing_1024_phase(torch)
         k1_tile_phase(checked_tiles)
         k2_cluster_phase(checked_clusters)
+        # the parallel paths (two ranks) and K1's halo entry
+        par, backend = parallel_phase(torch)
+        timings["gn_silu_conv3x3_halo"] = halo_timing_phase(torch)
     except Exception:  # report any phase's failure, print no result
         traceback.print_exc()
         return 1
+    halo = par["space"]["halo"]["errs"]
+    errs["gn_silu_conv3x3_halo"] = {
+        "max_abs_err": max(e[0] for e in halo.values()),
+        "max_rel_err": max(e[1] for e in halo.values())}
+    launches["gn_silu_conv3x3_halo"] = \
+        par["space"]["bfloat16_b8"]["launches"]["gn_silu_conv3x3_halo"]
+    new_paths = {
+        "16_128_train_data2": par["data"]["launches"],
+        "16_128_train_model2": par["model"]["launches"],
+        "16_128_forward_model2": par["model"]["forward_launches"],
+        "64_512_serving_space2": par["space"]["bfloat16_b8"]["launches"],
+        "64_512_train_space2": par["space"]["bfloat16_train"]["launches"],
+        "128_1024_serving_space2": par["space"]["1024"]["launches"]}
     kernels = []
     for name, (source, replaces, routes) in KERNELS.items():
         entry = {
             "name": name, "route": "cuda", "route_by_dtype": routes,
             "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches.get(name, 0),
             "max_abs_err": errs[name]["max_abs_err"],
             "max_rel_err": errs[name]["max_rel_err"],
             **timings[name],
@@ -2742,6 +3473,9 @@ def main():
         }
         entry.update({f"launches_{k}": v.get(name, 0)
                       for k, v in paths.items()})
+        entry.update({f"launches_{k}": v.get(name, 0)
+                      for k, v in new_paths.items()})
+        entry["parallel_backend"] = backend
         if name in timings_ddpm_128:
             entry["timings_sample_ddpm_128"] = timings_ddpm_128[name]
         if name in timings_1024:
@@ -2758,4 +3492,6 @@ def main():
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--rank"]:  # one rank of parallel_phase
+        sys.exit(rank_main(*sys.argv[2:4]))
     sys.exit(main())

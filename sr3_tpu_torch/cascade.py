@@ -14,6 +14,11 @@ in order) to its trained checkpoint. Between stages the outputs are
 bicubic-resized to the next stage's image_size with the prep tool's resize
 (``training/cascade.py``). The device is CUDA; ``SR3_PLATFORM=cpu`` runs it
 on the CPU.
+
+Several ranks: ``torchrun --nproc_per_node N -m sr3_tpu_torch.cascade ...``
+with a config ``"parallel": {"data": D, "model": M, "space": S}`` block,
+D * M * S = N (``sr3_tpu_torch/parallel/mesh.py``; ``--dist-backend``,
+default nccl on CUDA, gloo on the CPU); only the primary rank writes.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import logging
 from types import SimpleNamespace
 
 import sr3_tpu_torch.utils.config as Config
+from sr3_tpu_torch.parallel.mesh import (add_dist_argument, finish,
+                                         is_primary, start)
 from sr3_tpu_torch.training.cascade import load_input_images, run_cascade
 
 
@@ -42,29 +49,42 @@ def parse_args(argv=None):
                         help="output dir (default: first stage's results)")
     parser.add_argument("-gpu", "--gpu_ids", type=str, default=None)
     parser.add_argument("-debug", "-d", action="store_true")
+    add_dist_argument(parser)
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    blocks = [Config.load_json_with_comments(c).get("parallel")
+              for c in args.config]
+    if any(b != blocks[0] for b in blocks):
+        raise ValueError(f"the stages' parallel blocks differ: {blocks}; "
+                         f"the ranks run every stage on one mesh")
+    mesh = start(args, blocks[0])
     opts = []
     for k, cfg in enumerate(args.config):
         stage_args = SimpleNamespace(config=cfg, phase="val",
-                                     gpu_ids=args.gpu_ids, debug=args.debug)
+                                     gpu_ids=args.gpu_ids, debug=args.debug,
+                                     timestamp=getattr(args, "timestamp",
+                                                       None))
         opt = Config.dict_to_nonedict(Config.parse(stage_args))
         if args.resume and k < len(args.resume) and args.resume[k] != "-":
             opt["path"]["resume_state"] = args.resume[k]
         opts.append(opt)
 
-    Config.setup_logger(None, opts[0]["path"]["log"], "train", screen=True)
+    if is_primary(mesh):
+        Config.setup_logger(None, opts[0]["path"]["log"], "train",
+                            screen=True)
     logger = logging.getLogger("base")
 
     input_images = load_input_images(args.input) if args.input else None
     out_dir = args.out or opts[0]["path"]["results"]
     images = run_cascade(opts, n_samples=args.n_samples,
-                         input_images=input_images, out_dir=out_dir)
+                         input_images=input_images, out_dir=out_dir,
+                         mesh=mesh)
     logger.info("Cascade done: %d images at %s in %s", len(images),
                 f"{images[0].shape[0]}^2" if images else "-", out_dir)
+    finish(mesh)
 
 
 if __name__ == "__main__":

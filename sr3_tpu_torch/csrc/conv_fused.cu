@@ -12,6 +12,14 @@
 // On the 64->512 path it runs 35 times per train step (C_in 64..1024 at
 // 512^2..32^2) and 35 times per batch-8 512^2 serving step.
 //
+// The halo entry (sr3_gn_silu_conv3x3_halo) runs K1 on one H-shard of a map
+// sharded over ranks (sr3_tpu_torch/parallel/spatial.py): the caller gives
+// the per-(batch, channel) mult / add folded from the whole map's
+// statistics (K3 on the shard, all-reduced over the ranks) and the raw
+// input row above and below the shard from its neighbours, and only launch
+// 2 runs, reading those rows where the map's own entry reads zero padding.
+// The TPU package runs no kernel under its spatial sharding.
+//
 // Launch 1 (launch_gn_stats, groupnorm.cu), both routes: group statistics
 // of a*x+b and the per-channel mult/add of the normalize, so the normalized
 // value of a channel is x*mult + add. Launch 2 (this file) normalizes, SiLUs
@@ -73,9 +81,13 @@
 // than 64 channels is zero-filled.
 //
 // ptxas (sm_90a, CUDA 12.8, as chip_smoke.py's build phase prints it),
-// registers of gn_silu_conv3x3_wgmma_kernel<TW, NI, BN>: <16,1,128> 164
-// (one block of 256 threads per SM), <16,1,64> 118 and <8,2,64> 127 (two
-// per SM), <16,1,8> 107; no spills, and no wgmma serialized by ptxas.
+// registers of gn_silu_conv3x3_wgmma_kernel<TW, NI, BN, false>: <16,1,128>
+// 164 (one block of 256 threads per SM), <16,1,64> 118 and <8,2,64> 127
+// (two per SM), <16,1,8> 107; no spills, and no wgmma serialized by ptxas.
+// The halo entry's reads are a separate instantiation (kHalo = true), so
+// the map's own entry compiles to the kernel it was before that entry
+// existed: a first version that decided the halo rows at run time in the
+// one kernel took 9-12% longer in K1's conv on the card.
 //
 // Tolerance against the plain version (sr3_tpu_torch/ops/conv_fused.py
 // `gn_silu_conv3x3_plain`, GroupNorm then F.conv2d with TF32 off): 1e-4 of
@@ -92,9 +104,14 @@ constexpr int kTCO = 64;         // output channels per block
 constexpr int kCK = 16;          // input channels per shared-memory chunk
 constexpr int kThreads = 256;
 
-// float32: FMA arithmetic.
+// float32: FMA arithmetic. kHalo: the halo entry's instantiation, which
+// reads the rows above and below the map from top / bottom where given;
+// the map's own entry compiles without that code.
+template <bool kHalo>
 __global__ void __launch_bounds__(kThreads)
     gn_silu_conv3x3_kernel(const float* __restrict__ x,
+                           const float* __restrict__ top,
+                           const float* __restrict__ bottom,
                            const float* __restrict__ mult,
                            const float* __restrict__ add,
                            const float* __restrict__ w,
@@ -133,6 +150,11 @@ __global__ void __launch_bounds__(kThreads)
       float v = 0.f;
       if (c < Cin && iy >= 0 && iy < H && ix >= 0 && ix < W) {
         v = sr3::silu(fmaf(xb[((size_t)iy * W + ix) * Cin + c], mb[c], ab[c]));
+      } else if (kHalo && c < Cin && ix >= 0 && ix < W &&
+                 ((iy == -1 && top) || (iy == H && bottom))) {
+        // the row above / below the map from the neighbour's halo row
+        const float* row = iy < 0 ? top : bottom;
+        v = sr3::silu(fmaf(row[((size_t)b * W + ix) * Cin + c], mb[c], ab[c]));
       }
       in_s[ci][ry][rx] = v;
     }
@@ -217,9 +239,11 @@ struct WTile {
   static constexpr size_t kSmem = 1024 + (kMain > kOut ? kMain : kOut);
 };
 
-template <int TW, int NI, int BN>
+template <int TW, int NI, int BN, bool kHalo>
 __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
     gn_silu_conv3x3_wgmma_kernel(const bf16* __restrict__ x,
+                                 const bf16* __restrict__ top,
+                                 const bf16* __restrict__ bottom,
                                  const float* __restrict__ mult,
                                  const float* __restrict__ add,
                                  const bf16* __restrict__ w,
@@ -243,13 +267,20 @@ __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
   const int nstages = 9 * ((Cin + kWK - 1) / kWK);
 
   // batch element, row and column of halo pixel `pix`; false outside the
-  // batch or the map (the zero padding)
+  // batch or the map (the zero padding), but for kHalo true on the row
+  // above / below the map where top / bottom is given
   auto halo_at = [&](int pix, int& bb, int& iy, int& ix) {
     const int img = pix / (T::kHH * T::kHW), r = pix % (T::kHH * T::kHW);
     bb = b0 + img;
     iy = ty0 - 1 + r / T::kHW;
     ix = tx0 - 1 + r % T::kHW;
-    return bb < B && iy >= 0 && iy < H && ix >= 0 && ix < W;
+    const bool in = bb < B && iy >= 0 && iy < H && ix >= 0 && ix < W;
+    if constexpr (kHalo) {
+      return in || (bb < B && ix >= 0 && ix < W &&
+                    ((iy == -1 && top) || (iy == H && bottom)));
+    } else {
+      return in;
+    }
   };
 
   // Stage s = (chunk s / 9, tap s % 9): its BN x 64 weight slice into ring
@@ -272,8 +303,17 @@ __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
         const int pix = i / 8, c = i % 8;
         int bb, iy, ix;
         const bool ok = halo_at(pix, bb, iy, ix) && c0 + 8 * c < Cin;
-        const bf16* src =
-            ok ? x + (((size_t)bb * H + iy) * W + ix) * Cin + c0 + 8 * c : x;
+        const bf16* src;
+        if constexpr (kHalo) {
+          src = !ok ? x
+                : iy >= 0 && iy < H
+                    ? x + (((size_t)bb * H + iy) * W + ix) * Cin + c0 + 8 * c
+                    : (iy < 0 ? top : bottom) + ((size_t)bb * W + ix) * Cin +
+                          c0 + 8 * c;
+        } else {
+          src = ok ? x + (((size_t)bb * H + iy) * W + ix) * Cin + c0 + 8 * c
+                   : x;
+        }
         sr3::cp_async16(hb + pix * kHaloLd + 8 * c, src, ok);
       }
     }
@@ -437,7 +477,7 @@ __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
 }
 
 struct ConvArgs {
-  const bf16* x;
+  const bf16 *x, *top, *bottom;
   const float *mult, *add;
   const bf16* w;
   const float* bias;
@@ -450,24 +490,33 @@ struct ConvArgs {
 // order of sr3_gn_silu_conv3x3_tiles).
 std::atomic<long long> g_tile_launches[4];
 
-template <int TW, int NI, int BN>
-cudaError_t launch_wgmma(const ConvArgs& a, int tile, cudaStream_t st) {
+template <int TW, int NI, int BN, bool kHalo>
+cudaError_t launch_wgmma_as(const ConvArgs& a, int tile, cudaStream_t st) {
   using T = WTile<TW, NI, BN>;
   static sr3::SmemLimit limit;
-  const auto kernel = gn_silu_conv3x3_wgmma_kernel<TW, NI, BN>;
+  const auto kernel = gn_silu_conv3x3_wgmma_kernel<TW, NI, BN, kHalo>;
   cudaError_t err =
       sr3::raise_smem_limit(limit, (const void*)kernel, T::kSmem);
   if (err != cudaSuccess) return err;
   const int tiles_w = (a.W + TW - 1) / TW;
   const dim3 grid(((a.H + kWTH - 1) / kWTH) * tiles_w, (a.Cout + BN - 1) / BN,
                   (a.B + NI - 1) / NI);
-  kernel<<<grid, kWThreads, T::kSmem, st>>>(a.x, a.mult, a.add, a.w, a.bias,
+  kernel<<<grid, kWThreads, T::kSmem, st>>>(a.x, a.top, a.bottom, a.mult,
+                                            a.add, a.w, a.bias,
                                             a.res, a.y, a.B, a.H, a.W, a.Cin,
                                             a.Cout, tiles_w, a.vec);
   err = cudaGetLastError();
   if (err == cudaSuccess)
     g_tile_launches[tile].fetch_add(1, std::memory_order_relaxed);
   return err;
+}
+
+// The halo entry's instantiation when it is given a halo row, else the
+// map's own.
+template <int TW, int NI, int BN>
+cudaError_t launch_wgmma(const ConvArgs& a, int tile, cudaStream_t st) {
+  return a.top || a.bottom ? launch_wgmma_as<TW, NI, BN, true>(a, tile, st)
+                           : launch_wgmma_as<TW, NI, BN, false>(a, tile, st);
 }
 
 // Tiles of 8 x 16 pixels of one image, or on maps of width <= 8 tiles of
@@ -495,6 +544,45 @@ dim3 conv_grid(int B, int H, int W, int Cout, int* tiles_w) {
   return dim3(tiles_h * *tiles_w, (Cout + kTCO - 1) / kTCO, B);
 }
 
+// The conv launch of both routes: y = conv3x3(SiLU(x * mult + add)) + bias
+// (+ res), with the rows above and below the map from top / bottom where
+// they are given (else zero padding after the activation).
+cudaError_t launch_conv(const void* x, const void* top, const void* bottom,
+                        const float* mult, const float* add, const void* w,
+                        const float* bias, const void* res, void* y, int B,
+                        int H, int W, int Cin, int Cout, int dtype,
+                        cudaStream_t st) {
+  if (dtype == sr3::kBF16) {
+    const bool aligned =
+        ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+          reinterpret_cast<uintptr_t>(top) |
+          reinterpret_cast<uintptr_t>(bottom) |
+          reinterpret_cast<uintptr_t>(mult) |
+          reinterpret_cast<uintptr_t>(add)) % 16) == 0;
+    if (!aligned) return cudaErrorInvalidValue;
+    const int vec = Cout % 8 == 0 &&
+                    ((reinterpret_cast<uintptr_t>(y) |
+                      reinterpret_cast<uintptr_t>(res)) % 16) == 0;
+    const ConvArgs a{static_cast<const bf16*>(x),
+                     static_cast<const bf16*>(top),
+                     static_cast<const bf16*>(bottom), mult, add,
+                     static_cast<const bf16*>(w), bias,
+                     static_cast<const bf16*>(res), static_cast<bf16*>(y),
+                     B, H, W, Cin, Cout, vec};
+    return launch_bf16(a, st);
+  }
+  int tiles_w;
+  const dim3 grid = conv_grid(B, H, W, Cout, &tiles_w);
+  const auto kernel = top || bottom ? gn_silu_conv3x3_kernel<true>
+                                    : gn_silu_conv3x3_kernel<false>;
+  kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(top),
+      static_cast<const float*>(bottom), mult, add,
+      static_cast<const float*>(w), bias, static_cast<const float*>(res),
+      static_cast<float*>(y), H, W, Cin, Cout, tiles_w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y = conv3x3(SiLU(GroupNorm(pre_scale*x + pre_bias))) + bias (+ res).
@@ -518,28 +606,31 @@ extern "C" int sr3_gn_silu_conv3x3(const void* x, const float* pre_scale,
                                          beta, workspace, tickets, B, H * W,
                                          Cin, G, eps, st);
   if (err != cudaSuccess) return (int)err;
-  const float* mult = workspace;
-  const float* add = sr3::gn_add(workspace, B, Cin);
-  if (dtype == sr3::kBF16) {
-    const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
-                           reinterpret_cast<uintptr_t>(w)) % 16) == 0;
-    if (!aligned) return (int)cudaErrorInvalidValue;
-    const int vec = Cout % 8 == 0 &&
-                    ((reinterpret_cast<uintptr_t>(y) |
-                      reinterpret_cast<uintptr_t>(res)) % 16) == 0;
-    const ConvArgs a{static_cast<const bf16*>(x), mult, add,
-                     static_cast<const bf16*>(w), bias,
-                     static_cast<const bf16*>(res), static_cast<bf16*>(y),
-                     B, H, W, Cin, Cout, vec};
-    return (int)launch_bf16(a, st);
-  }
-  int tiles_w;
-  const dim3 grid = conv_grid(B, H, W, Cout, &tiles_w);
-  gn_silu_conv3x3_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), mult, add, static_cast<const float*>(w),
-      bias, static_cast<const float*>(res), static_cast<float*>(y), H, W, Cin,
-      Cout, tiles_w);
-  return (int)cudaGetLastError();
+  return (int)launch_conv(x, nullptr, nullptr, workspace,
+                          sr3::gn_add(workspace, B, Cin), w, bias, res, y, B,
+                          H, W, Cin, Cout, dtype, st);
+}
+
+// K1 on one H-shard of a map sharded over ranks (the halo entry): the conv
+// launch alone, with the caller's per-(batch, channel) normalize -- the
+// normalized value of x is x * mult + add, mult / add (B,Cin) float32 from
+// the whole map's statistics, folded with the GroupNorm affine and the
+// pre-affine -- and the shard's halo rows: top / bottom (B,1,W,Cin) of
+// dtype, the raw input row above / below the shard, or null at the image
+// border (zero padding after the activation, as in sr3_gn_silu_conv3x3).
+// x: (B,H,W,Cin) the shard, w: (Cout,3,3,Cin), res/y: (B,H,W,Cout); bias:
+// (Cout) float32 or null. bfloat16 needs Cin % 16 == 0 and every pointer
+// but y / res 16-byte aligned. Returns the CUDA error code (0 on success).
+extern "C" int sr3_gn_silu_conv3x3_halo(const void* x, const void* top,
+                                        const void* bottom, const float* mult,
+                                        const float* add, const void* w,
+                                        const float* bias, const void* res,
+                                        void* y, int B, int H, int W, int Cin,
+                                        int Cout, int dtype, void* stream) {
+  if (dtype == sr3::kBF16 && Cin % kCK) return (int)cudaErrorInvalidValue;
+  return (int)launch_conv(x, top, bottom, mult, add, w, bias, res, y, B, H,
+                          W, Cin, Cout, dtype,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // Launches of each bfloat16 tile <TW, NI, BN> since the last reset, into

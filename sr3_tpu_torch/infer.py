@@ -7,6 +7,11 @@ Builds the val dataset, the model (weights from ``path.resume_state``'s
 ``_gen.pth`` when set) and runs grouped SR inference with process-grid
 outputs (``sr3_tpu_torch.training.evaluation.infer_sr``). The device is CUDA;
 ``SR3_PLATFORM=cpu`` runs it on the CPU.
+
+Several ranks: ``torchrun --nproc_per_node N -m sr3_tpu_torch.infer ...``
+with a config ``"parallel": {"data": D, "model": M, "space": S}`` block,
+D * M * S = N (``sr3_tpu_torch/parallel/mesh.py``; ``--dist-backend``,
+default nccl on CUDA, gloo on the CPU); only the primary rank writes.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import logging
 
 import sr3_tpu_torch.utils.config as Config
 from sr3_tpu_torch.data.loader import create_dataset
+from sr3_tpu_torch.parallel.mesh import (add_dist_argument, finish,
+                                         is_primary, start)
 from sr3_tpu_torch.training.evaluation import infer_sr
 from sr3_tpu_torch.training.trainer import create_model
 
@@ -28,6 +35,7 @@ def parse_args(argv=None):
                         default="val")
     parser.add_argument("-gpu", "--gpu_ids", type=str, default=None)
     parser.add_argument("-debug", "-d", action="store_true")
+    add_dist_argument(parser)
     parser.add_argument("-enable_wandb", action="store_true")
     parser.add_argument("-log_infer", action="store_true")
     return parser.parse_args(argv)
@@ -35,15 +43,23 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    opt = Config.dict_to_nonedict(Config.parse(args))
+    mesh = start(args, Config.load_json_with_comments(args.config)
+                 .get("parallel"))
+    run(args, mesh)
+    finish(mesh)
 
-    Config.setup_logger(None, opt["path"]["log"], "train", screen=True)
-    Config.setup_logger("val", opt["path"]["log"], "val")
+
+def run(args, mesh):
+    opt = Config.dict_to_nonedict(Config.parse(args))
+    primary = is_primary(mesh)
+    if primary:  # the other ranks log nothing
+        Config.setup_logger(None, opt["path"]["log"], "train", screen=True)
+        Config.setup_logger("val", opt["path"]["log"], "val")
     logger = logging.getLogger("base")
     logger.info(Config.dict2str(opt))
 
     wandb_logger = None
-    if opt["enable_wandb"]:
+    if opt["enable_wandb"] and primary:
         from sr3_tpu_torch.utils.wandb_logger import WandbLogger
 
         wandb_logger = WandbLogger(opt)
@@ -51,7 +67,7 @@ def main(argv=None):
     val_set = create_dataset(opt["datasets"]["val"], "val")
     logger.info("Initial Dataset Finished")
 
-    trainer = create_model(opt)
+    trainer = create_model(opt, mesh=mesh)
     trainer.print_network()
     logger.info("Initial Model Finished")
     trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],

@@ -37,7 +37,18 @@ block's dropout draws: it runs on a copy of the generator taken at the
 block's start, so it draws the same masks and leaves the generator where
 the first forward left it. The kernels launch again in the recompute, and
 their counters count it.
+
+``UNet.set_parallel(mesh)`` lays the network out on a mesh
+(``sr3_tpu_torch/parallel``): on the model axis every conv / linear /
+GroupNorm whose output channels the axis divides keeps its slice and
+gathers its output (``sharding_rules.py``); on the space axis every level
+whose height the axis divides into shards of 2+ rows runs H-sharded
+(``spatial.py``): K1 through its halo entry, the dropout Blocks' and
+attention's GroupNorm on all-reduced K3 statistics, the plain 3x3 convs
+with halo rows, attention (K4-K6) on the gathered tokens; other levels run
+whole. The forward still takes and returns the whole map on every rank.
 """
+
 
 from __future__ import annotations
 
@@ -50,9 +61,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sr3_tpu_torch.ops.attention import attention
-from sr3_tpu_torch.ops.conv_fused import gn_silu_conv3x3
+from sr3_tpu_torch.ops.conv_fused import (gn_silu_conv3x3,
+                                          gn_silu_conv3x3_space)
 from sr3_tpu_torch.ops.dropout import dropout
-from sr3_tpu_torch.ops.groupnorm import group_norm
+from sr3_tpu_torch.ops.groupnorm import group_norm, group_norm_space
+from sr3_tpu_torch.parallel import sharding_rules as tp
+from sr3_tpu_torch.parallel import spatial
 
 CL = torch.channels_last
 
@@ -67,16 +81,34 @@ def positional_encoding(cond, dim):
     return torch.cat([torch.sin(enc), torch.cos(enc)], dim=-1)
 
 
-def _conv(conv, x, **kw):
-    """nn.Conv2d applied in x's dtype, output in channels_last memory."""
+def _conv(conv, x, space=None):
+    """nn.Conv2d applied in x's dtype, output in channels_last memory. A 3x3
+    conv of an H-shard (``space``: the space axis) takes its halo rows
+    (``spatial.halo_conv2d``); a conv sharded over ``model`` computes its
+    output channels and gathers them (``parallel/sharding_rules.py``)."""
+    axis = getattr(conv, "tp", None)
+    x = tp.copy_in(x, axis)
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    y = F.conv2d(x, conv.weight.to(x.dtype), bias, stride=conv.stride,
-                 padding=conv.padding, **kw)
-    return y.contiguous(memory_format=CL)
+    if space is not None and conv.kernel_size == (3, 3):
+        y = spatial.halo_conv2d(x, conv.weight.to(x.dtype), bias, space,
+                                stride=conv.stride[0])
+    else:
+        y = F.conv2d(x, conv.weight.to(x.dtype), bias, stride=conv.stride,
+                     padding=conv.padding)
+    y = y.contiguous(memory_format=CL)
+    return y if axis is None else tp.gather_channels(y, axis)
 
 
 def _linear(lin, x):
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+    axis = getattr(lin, "tp", None)
+    y = F.linear(tp.copy_in(x, axis), lin.weight.to(x.dtype),
+                 lin.bias.to(x.dtype))
+    return y if axis is None else tp.gather_channels(y, axis, -1)
+
+
+def _affine(norm):
+    """A GroupNorm's (weight, bias), whole (gathered when sharded)."""
+    return tp.gather_param(norm.weight, norm), tp.gather_param(norm.bias, norm)
 
 
 class PositionalEncoding(nn.Module):
@@ -109,6 +141,8 @@ class Block(nn.Module):
     +SiLU (kernel K2), dropout, then a plain conv3x3 + bias and the
     residual."""
 
+    space = None  # the space axis when this Block's level is H-sharded
+
     def __init__(self, dim, dim_out, groups=32, dropout=0.0):
         super().__init__()
         self.groups = groups
@@ -121,15 +155,39 @@ class Block(nn.Module):
 
     def forward(self, x, pre_bias=None, residual=None, generator=None):
         norm, conv = self.block[0], self.block[3]
+        gw, gb = _affine(norm)
         if not (self.training and self.dropout):
-            return gn_silu_conv3x3(
-                x, norm.weight, norm.bias, conv.weight, conv.bias,
-                self.groups, pre_bias=pre_bias, residual=residual)
+            axis = getattr(conv, "tp", None)
+            if axis is not None:
+                # the output channel slice of the sharded weight, from the
+                # whole input, then gathered
+                x, gw, gb, pre_bias = (tp.copy_in(t, axis)
+                                       for t in (x, gw, gb, pre_bias))
+                if residual is not None:
+                    residual = tp.slice_channels(tp.copy_in(residual, axis),
+                                                 axis)
+            if self.space is not None:
+                y = gn_silu_conv3x3_space(
+                    x, gw, gb, conv.weight, conv.bias, self.groups,
+                    self.space, pre_bias=pre_bias, residual=residual)
+            else:
+                y = gn_silu_conv3x3(
+                    x, gw, gb, conv.weight, conv.bias, self.groups,
+                    pre_bias=pre_bias, residual=residual)
+            return y if axis is None else tp.gather_channels(y, axis)
         if pre_bias is not None:
             x = x + pre_bias[:, :, None, None].to(x.dtype)
-        h = group_norm(x.contiguous(memory_format=CL), norm.weight, norm.bias,
-                       self.groups, swish=True)
-        y = _conv(conv, dropout(h, self.dropout, generator))
+        x = x.contiguous(memory_format=CL)
+        rows = None
+        if self.space is not None:
+            h = group_norm_space(x, gw, gb, self.groups, self.space,
+                                 swish=True)
+            h_full = x.shape[2] * self.space.size
+            rows = (spatial.row_slice(h_full, self.space), h_full)
+        else:
+            h = group_norm(x, gw, gb, self.groups, swish=True)
+        y = _conv(conv, dropout(h, self.dropout, generator, rows),
+                  space=self.space)
         return y if residual is None else y + residual.to(y.dtype)
 
 
@@ -170,6 +228,8 @@ class SelfAttention(nn.Module):
     """Single-head spatial self-attention with residual, softmax scale
     1/sqrt(C); qkv's output channels are (q, k, v) in that order."""
 
+    space = None  # the space axis when this level is H-sharded
+
     def __init__(self, in_channel, norm_groups=32):
         super().__init__()
         self.groups = norm_groups
@@ -178,14 +238,21 @@ class SelfAttention(nn.Module):
         self.out = nn.Conv2d(in_channel, in_channel, 1)
 
     def forward(self, x):
-        b, c, h, w = x.shape
-        n = group_norm(x, self.norm.weight, self.norm.bias, self.groups,
-                       swish=False)
+        gw, gb = _affine(self.norm)
+        if self.space is not None:  # attention over the gathered tokens
+            n = group_norm_space(x, gw, gb, self.groups, self.space,
+                                 swish=False)
+            n = spatial.gather_rows(n, self.space)
+        else:
+            n = group_norm(x, gw, gb, self.groups, swish=False)
+        b, c, h, w = n.shape
         qkv = _conv(self.qkv, n)  # (b, 3c, h, w), physically (b, h, w, 3c)
         qkv = qkv.permute(0, 2, 3, 1).reshape(b, h * w, 3, c)
         q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
         out = attention(q, k, v, 1.0 / math.sqrt(c))  # (b, hw, c) float32
         out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)  # channels_last
+        if self.space is not None:  # this rank's rows
+            out = spatial.slice_rows(out, self.space)
         return x + _conv(self.out, out.to(x.dtype))
 
 
@@ -230,16 +297,21 @@ def remat_block(layer, x, emb, generator=None):
 class Downsample(nn.Module):
     """conv3x3 stride 2, padding 1."""
 
+    space = None  # the space axis when its input is H-sharded
+
     def __init__(self, dim):
         super().__init__()
         self.conv = nn.Conv2d(dim, dim, 3, 2, 1)
 
     def forward(self, x):
-        return _conv(self.conv, x)
+        return _conv(self.conv, x, space=self.space)
 
 
 class Upsample(nn.Module):
     """Nearest x2, then conv3x3."""
+
+    space = None  # the space axis when its input is H-sharded
+    space_out = None  # ... when its output is
 
     def __init__(self, dim):
         super().__init__()
@@ -247,7 +319,10 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         x = F.interpolate(x, scale_factor=2, mode="nearest")
-        return _conv(self.conv, x.contiguous(memory_format=CL))
+        x = x.contiguous(memory_format=CL)
+        if self.space_out is not None and self.space is None:
+            x = spatial.slice_rows(x, self.space_out)
+        return _conv(self.conv, x, space=self.space_out)
 
 
 class UNet(nn.Module):
@@ -322,6 +397,57 @@ class UNet(nn.Module):
         self.ups = nn.ModuleList(ups)
         self.final_conv = Block(pre_channel, out_channel, groups=norm_groups)
 
+    # ---------------------------------------------------------- parallel
+
+    space = None  # the mesh's space axis (set_parallel)
+    stem_space = None  # the space axis when the image level is H-sharded
+
+    def set_parallel(self, mesh):
+        """Lay the UNet out on ``mesh``: shard the parameters over its model
+        axis (``parallel/sharding_rules.py``) and mark every layer of a
+        level that its space axis shards (``spatial.sharded``). Returns the
+        names of the sharded parameters."""
+        names = []
+        if mesh is not None and mesh.model.size > 1:
+            names = tp.shard_params(self, mesh.model)
+        axis = mesh.space if mesh is not None and mesh.space.size > 1 \
+            else None
+        if axis is None:
+            return names
+        self.space = axis
+        on = lambda res: axis if spatial.sharded(res, axis) else None
+        res = self.image_size
+        self.stem_space = on(res)
+        for layer in list(self.downs[1:]) + list(self.mid) + list(self.ups):
+            if isinstance(layer, ResnetBlocWithAttn):
+                for m in layer.modules():
+                    if isinstance(m, (Block, SelfAttention)):
+                        m.space = on(res)
+            elif isinstance(layer, Downsample):
+                # a stride-2 halo conv needs an even shard height
+                layer.space = on(res) if (res // axis.size) % 2 == 0 \
+                    else None
+                res //= 2
+            else:
+                layer.space, layer.space_out = on(res), on(res * 2)
+                res *= 2
+        self.final_conv.space = on(res)
+        return names
+
+    def _layout(self, x, res, want):
+        """x (of a level of full height res) H-sharded when ``want`` is an
+        axis, whole when it is None."""
+        if self.space is None:
+            return x
+        is_sharded = x.shape[2] != res
+        if want is not None and not is_sharded:
+            return spatial.slice_rows(x, self.space)
+        if want is None and is_sharded:
+            return spatial.gather_rows(x, self.space)
+        return x
+
+    # ----------------------------------------------------------- forward
+
     def forward(self, x, noise_level, generator=None):
         if x.shape[1] != self.in_channel:
             raise ValueError(f"expected {self.in_channel} input channels "
@@ -334,18 +460,38 @@ class UNet(nn.Module):
         rba = (functools.partial(remat_block, generator=generator)
                if self.remat and torch.is_grad_enabled()
                else lambda layer, x, emb: layer(x, emb, generator))
-        x = _conv(self.downs[0], x.to(self.dtype).contiguous(memory_format=CL))
+        res = x.shape[2]
+        if self.space is not None and res != self.image_size:
+            raise ValueError(f"the space layout was planned for "
+                             f"{self.image_size}^2 maps, got {res} rows")
+        x = self._layout(x.to(self.dtype).contiguous(memory_format=CL), res,
+                         self.stem_space)
+        x = _conv(self.downs[0], x, space=self.stem_space)
         feats = [x]
         for layer in self.downs[1:]:
-            x = rba(layer, x, emb) \
-                if isinstance(layer, ResnetBlocWithAttn) else layer(x)
+            if isinstance(layer, ResnetBlocWithAttn):
+                x = rba(layer, self._layout(x, res, layer.res_block.block1
+                                            .space), emb)
+            else:
+                x = layer(self._layout(x, res, layer.space))
+                res //= 2
             feats.append(x)
         for layer in self.mid:
-            x = rba(layer, x, emb)
+            x = rba(layer, self._layout(x, res, layer.res_block.block1.space),
+                    emb)
         for layer in self.ups:
             if isinstance(layer, ResnetBlocWithAttn):
-                x = torch.cat([x, feats.pop()], dim=1)
+                want = layer.res_block.block1.space
+                x = torch.cat([self._layout(x, res, want),
+                               self._layout(feats.pop(), res, want)], dim=1)
                 x = rba(layer, x.contiguous(memory_format=CL), emb)
             else:
-                x = layer(x)
-        return self.final_conv(x).float()
+                x = layer(self._layout(x, res, layer.space))
+                res *= 2
+        out = self.final_conv(self._layout(x, res, self.final_conv.space))
+        out = out.float()
+        if self.space is None:
+            return out
+        if out.shape[2] != res:  # every rank's rows, whole on every rank
+            return spatial.gather_output(out, self.space)
+        return spatial.replicated_output(out, self.space)

@@ -52,6 +52,9 @@ _SIGNATURES = {
     # x, pre_scale, pre_bias, gamma, beta, w, bias, res, y, workspace,
     # tickets, B, H, W, Cin, Cout, G, eps, dtype, stream
     "sr3_gn_silu_conv3x3": ([_P] * 11 + [_I] * 6 + [_F, _I, _P], _I),
+    # x, top, bottom, mult, add, w, bias, res, y, B, H, W, Cin, Cout,
+    # dtype, stream
+    "sr3_gn_silu_conv3x3_halo": ([_P] * 9 + [_I] * 6 + [_P], _I),
     # counts (4 long long), reset
     "sr3_gn_silu_conv3x3_tiles": ([_P, _I], _I),
     # q, k, v, o, lse, BH, S, D, scale, dtype, stream

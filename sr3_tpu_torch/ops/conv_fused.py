@@ -12,7 +12,16 @@ gradient is the output gradient). Activations are logical NCHW in
 ``torch.channels_last`` memory; the conv weight is torch's (Cout, Cin, 3,
 3), also channels_last (physically (Cout, 3, 3, Cin), the layout the kernel
 reads).
+
+On an H-shard of a map sharded over the mesh's space axis
+(``parallel/spatial.py``), ``gn_silu_conv3x3_space`` takes the whole map's
+statistics (K3 on the shard, all-reduced) and the neighbours' halo rows and
+runs K1's halo entry (``gn_silu_conv3x3_halo``: the conv launch alone, with
+the caller's per-(b, c) mult / add and the raw rows above and below the
+shard); ``gn_silu_conv3x3_halo_plain`` is its plain version, and its
+backward is autograd through that plain version, as K1's is.
 """
+
 
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ import torch.nn.functional as F
 
 from sr3_tpu_torch.ops import _build
 from sr3_tpu_torch.ops.groupnorm import (check_channels_last,
-                                         group_norm_plain, stats_workspace)
+                                         group_norm_plain, space_stats,
+                                         stats_workspace)
 
 counter = _build.LaunchCount("gn_silu_conv3x3")
 # The bfloat16 kernel's tiles <TW, NI, BN> (tile width, images per block,
@@ -163,3 +173,141 @@ class _GnSiluConv3x3(torch.autograd.Function):
                for t in leaves]
         dres = g.to(ctx.residual_dtype) if ctx.needs_input_grad[7] else None
         return (*out, dres, None, None)
+
+
+# ---------------------------------------------------- the halo entry (space)
+
+halo_counter = _build.LaunchCount("gn_silu_conv3x3_halo")
+
+
+def _act(t, mult, add, dtype):
+    z = t.float() * mult[:, :, None, None] + add[:, :, None, None]
+    return (z * torch.sigmoid(z)).to(dtype)
+
+
+def gn_silu_conv3x3_halo_plain(x, top, bottom, mult, add, weight, bias,
+                               residual=None):
+    """The plain version of K1's halo entry. x: (B,Cin,h,W) an H-shard;
+    top / bottom: (B,Cin,1,W) the raw rows above / below it, or None for
+    zero padding after the activation; mult / add: (B,Cin) float32, the
+    normalized x being x * mult + add; weight (Cout,Cin,3,3); residual
+    (B,Cout,h,W). SiLU in float32, cast to x's dtype, conv3x3 (padding 1
+    on W, the halo rows on H) with bias, then the residual. Returns
+    (B,Cout,h,W) in x's dtype."""
+    b, cin, h, w = x.shape
+    zero = x.new_zeros((b, cin, 1, w))
+    rows = [zero if top is None else _act(top, mult, add, x.dtype),
+            _act(x, mult, add, x.dtype),
+            zero if bottom is None else _act(bottom, mult, add, x.dtype)]
+    y = F.conv2d(torch.cat(rows, dim=2), weight.to(x.dtype),
+                 None if bias is None else bias.to(x.dtype), padding=(0, 1))
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def _fwd_halo(x, top, bottom, mult, add, weight, bias, residual):
+    if x.device.type == "cpu":
+        return gn_silu_conv3x3_halo_plain(x, top, bottom, mult, add, weight,
+                                          bias, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_conv3x3_halo runs on cpu or cuda, not "
+                         f"{x.device}")
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    wk = weight.to(x.dtype)
+    if not wk.permute(0, 2, 3, 1).is_contiguous():
+        raise ValueError("conv weight must be in torch.channels_last memory "
+                         "(physically (Cout, 3, 3, Cin))")
+    for t, name in ((top, "top"), (bottom, "bottom")):
+        if t is not None:
+            check_channels_last(t, name)
+            if tuple(t.shape) != (b, cin, 1, w) or t.dtype != x.dtype:
+                raise ValueError(f"{name} must be {(b, cin, 1, w)} of "
+                                 f"{x.dtype}, got {tuple(t.shape)} {t.dtype}")
+    if residual is not None and residual.dtype != x.dtype:
+        raise TypeError(f"residual dtype {residual.dtype} != x dtype "
+                        f"{x.dtype}")
+    if x.dtype == torch.bfloat16 and cin % 16:
+        raise ValueError(f"the bfloat16 kernel takes C_in a multiple of 16, "
+                         f"got {cin}")
+    m = _f32_or_none(mult, (b, cin), "mult")
+    a = _f32_or_none(add, (b, cin), "add")
+    if any(t is not None and t.data_ptr() % 16
+           for t in (x, wk, top, bottom, m, a)):
+        raise ValueError("x, the halo rows, mult, add and the conv weight "
+                         "must start 16-byte aligned")
+    cb = None if bias is None else bias.float().contiguous()
+    y = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    ptr = _build.ptr
+    err = _build.load_library().sr3_gn_silu_conv3x3_halo(
+        x.data_ptr(), ptr(top), ptr(bottom), m.data_ptr(), a.data_ptr(),
+        wk.data_ptr(), ptr(cb), ptr(residual), y.data_ptr(), b, h, w, cin,
+        cout, _build.dtype_code(x), _build.stream_of(x))
+    _build.check(err, "sr3_gn_silu_conv3x3_halo")
+    halo_counter.n += 1
+    return y
+
+
+class _GnSiluConv3x3Halo(torch.autograd.Function):
+    """K1's halo entry forward; the backward is autograd through
+    ``gn_silu_conv3x3_halo_plain`` recomputed from the saved inputs (the
+    residual's gradient is the output gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, mult, add, weight, bias, residual):
+        ctx.save_for_backward(x, top, bottom, mult, add, weight, bias)
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        return _fwd_halo(x, top, bottom, mult, add, weight, bias, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            y = gn_silu_conv3x3_halo_plain(*leaves)
+            wrt = [t for t in leaves if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+        out = [next(grads) if t is not None and t.requires_grad else None
+               for t in leaves]
+        dres = g.to(ctx.residual_dtype) if ctx.needs_input_grad[7] else None
+        return (*out, dres)
+
+
+def gn_silu_conv3x3_halo(x, top, bottom, mult, add, weight, bias,
+                         residual=None):
+    """K1's halo entry: the plain version on the CPU, the kernel on CUDA;
+    differentiable in every tensor argument."""
+    check_channels_last(x)
+    if residual is not None:
+        check_channels_last(residual, "residual")
+    args = (x, top, bottom, mult, add, weight, bias, residual)
+    if _build.needs_grad(*args):
+        return _GnSiluConv3x3Halo.apply(*args)
+    return _fwd_halo(*args)
+
+
+def gn_silu_conv3x3_space(x, gn_weight, gn_bias, weight, bias, num_groups,
+                          axis, eps=1e-5, pre_scale=None, pre_bias=None,
+                          residual=None):
+    """``gn_silu_conv3x3`` of the H-shard x of a map sharded over the space
+    ``axis``: the whole map's GroupNorm statistics of a*x + b
+    (``groupnorm.space_stats``: K3 sums of the shard, adjusted for the
+    pre-affine in float32, all-reduced, folded), folded with the affine
+    into per-(b, c) mult / add, the halo rows from the neighbours, then K1's
+    halo entry. Differentiable; a collective over ``axis``."""
+    from sr3_tpu_torch.parallel.spatial import halo_exchange, is_border
+
+    mean_c, rstd_c = space_stats(x, num_groups, eps, axis, pre_scale,
+                                 pre_bias)
+    sc = gn_weight.float()[None] * rstd_c
+    shift = -mean_c if pre_bias is None else pre_bias.float() - mean_c
+    add = shift * sc + gn_bias.float()[None]
+    mult = sc if pre_scale is None else sc * pre_scale.float()
+    top, bottom = halo_exchange(x, axis)
+    at_top, at_bottom = is_border(axis)
+    return gn_silu_conv3x3_halo(x, None if at_top else top,
+                                None if at_bottom else bottom, mult, add,
+                                weight, bias, residual)

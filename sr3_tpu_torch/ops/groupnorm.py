@@ -20,7 +20,15 @@ takes that route only on a TPU and behind an environment variable; in the
 port the kernels are the default on CUDA, and the CPU takes the same route
 with the plain sums. Tensors are logical NCHW in ``torch.channels_last``
 memory.
+
+On an H-shard of a map sharded over the mesh's space axis,
+``group_norm_space`` takes K3's per-(b, c) sums of the shard
+(``channel_sums``, differentiable), all-reduces them over the axis and
+folds them (``space_stats``, which K1's halo route shares); the backward is
+autograd of that composition, so the gradients of the statistics are
+all-reduced as well.
 """
+
 
 from __future__ import annotations
 
@@ -325,3 +333,63 @@ def group_norm(x, weight, bias, num_groups, eps=1e-5, swish=True):
     if _build.needs_grad(x, weight, bias):
         return _GroupNorm.apply(x, weight, bias, num_groups, eps, swish)
     return _group_norm_fwd(x, weight, bias, num_groups, eps, swish)
+
+
+class _ChannelSums(torch.autograd.Function):
+    """(s1, s2) = per-(b, c) sums of x and x^2 by ``gn_stats`` (kernel K3
+    on CUDA); the backward is ds1 + 2 x ds2."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return gn_stats(x)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        (x,) = ctx.saved_tensors
+        dx = g1[:, :, None, None] + 2.0 * x.float() * g2[:, :, None, None]
+        return dx.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def channel_sums(x):
+    """Differentiable per-(b, c) float32 sums (s1, s2) of x and x^2."""
+    check_channels_last(x)
+    if _build.needs_grad(x):
+        return _ChannelSums.apply(x)
+    return gn_stats(x)
+
+
+def space_stats(x, num_groups, eps, axis, pre_scale=None, pre_bias=None):
+    """Per-(b, c) mean and rstd of the groups of a*x + b over the whole map
+    of which x (B, C, h, W) is this rank's H-shard: K3's sums of the shard,
+    adjusted in float32 for the pre-affine (sums of a*x+b and its square),
+    all-reduced over ``axis``, then folded. Differentiable."""
+    from sr3_tpu_torch.parallel.spatial import all_reduce_sum
+
+    b, c, h, w = x.shape
+    s1, s2 = channel_sums(x)
+    n = float(h * w)
+    if pre_scale is not None:
+        a = pre_scale.float()
+        s1, s2 = a * s1, a.square() * s2
+    if pre_bias is not None:
+        pb = pre_bias.float()
+        s1, s2 = s1 + n * pb, s2 + 2.0 * pb * s1 + n * pb.square()
+    sums = all_reduce_sum(torch.stack([s1, s2]), axis)
+    return _group_fold(sums[0], sums[1], h * w * axis.size, num_groups, eps)
+
+
+def group_norm_space(x, weight, bias, num_groups, axis, eps=1e-5,
+                     swish=True):
+    """GroupNorm(+SiLU) of the H-shard x of a map sharded over ``axis``:
+    the statistics of the whole map (``space_stats``: K3, all-reduce, fold)
+    and a torch normalize; differentiable (the statistics' gradients are
+    all-reduced over ``axis`` through ``all_reduce_sum``'s backward)."""
+    _check_groups(x, num_groups)
+    mean_c, rstd_c = space_stats(x, num_groups, eps, axis)
+    sc = weight.float()[None] * rstd_c
+    off = bias.float()[None] - mean_c * sc
+    z = x.float() * sc[:, :, None, None] + off[:, :, None, None]
+    if swish:
+        z = z * torch.sigmoid(z)
+    return z.to(x.dtype).contiguous(memory_format=torch.channels_last)

@@ -10,6 +10,11 @@ val schedule) every ``train.val_freq`` steps; ``-p val`` runs
 ``evaluate_uncond``: the process grid and the final sample of each draw.
 ``model.diffusion.sampler`` picks the chain (ancestral, DDIM or
 DPM-Solver++). The device is CUDA; ``SR3_PLATFORM=cpu`` runs it on the CPU.
+
+Several ranks: ``torchrun --nproc_per_node N -m sr3_tpu_torch.sample ...``
+with a config ``"parallel": {"data": D, "model": M, "space": S}`` block,
+D * M * S = N (``sr3_tpu_torch/parallel/mesh.py``; ``--dist-backend``,
+default nccl on CUDA, gloo on the CPU); only the primary rank writes.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import logging
 
 import sr3_tpu_torch.utils.config as Config
 from sr3_tpu_torch.data.loader import create_dataloader, create_dataset
+from sr3_tpu_torch.parallel.mesh import (add_dist_argument, finish,
+                                         is_primary, start)
 from sr3_tpu_torch.training.evaluation import evaluate_uncond, sample_in_train
 from sr3_tpu_torch.training.loops import train_loop
 from sr3_tpu_torch.training.trainer import create_model
@@ -33,6 +40,7 @@ def parse_args(argv=None):
                         default="train")
     parser.add_argument("-gpu", "--gpu_ids", type=str, default=None)
     parser.add_argument("-debug", "-d", action="store_true")
+    add_dist_argument(parser)
     parser.add_argument("-enable_wandb", action="store_true")
     parser.add_argument("-log_wandb_ckpt", action="store_true")
     parser.add_argument("-log_eval", action="store_true")
@@ -41,10 +49,18 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    opt = Config.dict_to_nonedict(Config.parse(args))
+    mesh = start(args, Config.load_json_with_comments(args.config)
+                 .get("parallel"))
+    run(args, mesh)
+    finish(mesh)
 
-    Config.setup_logger(None, opt["path"]["log"], "train", screen=True)
-    Config.setup_logger("val", opt["path"]["log"], "val")
+
+def run(args, mesh):
+    opt = Config.dict_to_nonedict(Config.parse(args))
+    primary = is_primary(mesh)
+    if primary:  # the other ranks log nothing
+        Config.setup_logger(None, opt["path"]["log"], "train", screen=True)
+        Config.setup_logger("val", opt["path"]["log"], "val")
     logger = logging.getLogger("base")
     logger.info(Config.dict2str(opt))
 
@@ -53,9 +69,9 @@ def main(argv=None):
     except ImportError:
         SummaryWriter = None
     tb_logger = (SummaryWriter(log_dir=opt["path"]["tb_logger"])
-                 if SummaryWriter else None)
+                 if SummaryWriter and primary else None)
     wandb_logger = None
-    if opt["enable_wandb"]:
+    if opt["enable_wandb"] and primary:
         from sr3_tpu_torch.utils.wandb_logger import WandbLogger
 
         wandb_logger = WandbLogger(opt)
@@ -63,11 +79,11 @@ def main(argv=None):
     if opt["phase"] == "train":
         train_set = create_dataset(opt["datasets"]["train"], "train")
         train_loader = create_dataloader(train_set, opt["datasets"]["train"],
-                                         "train")
+                                         "train", mesh)
     sample_sum = len(create_dataset(opt["datasets"]["val"], "val"))
     logger.info("Initial Dataset Finished")
 
-    trainer = create_model(opt)
+    trainer = create_model(opt, mesh=mesh)
     trainer.print_network()
     logger.info("Initial Model Finished")
     trainer.set_new_noise_schedule(opt["model"]["beta_schedule"][opt["phase"]],

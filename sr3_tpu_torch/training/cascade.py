@@ -24,6 +24,7 @@ import torch
 
 import sr3_tpu_torch.utils.metrics as Metrics
 from sr3_tpu_torch.data.prepare import BICUBIC, resize_and_convert
+from sr3_tpu_torch.parallel.mesh import is_primary
 from sr3_tpu_torch.training.evaluation import GroupedEvaluator, _group_size
 
 logger = logging.getLogger("base")
@@ -52,12 +53,13 @@ def load_input_images(path):
     return out
 
 
-def run_stage(opt, images=None, n_samples=None):
+def run_stage(opt, images=None, n_samples=None, mesh=None):
     """Run one cascade stage; returns the stage outputs as [-1,1] floats.
 
     opt: parsed config (phase 'val', path.resume_state the stage's weights).
     images: previous-stage outputs for a conditional stage; n_samples: the
-    count for an unconditional seed stage."""
+    count for an unconditional seed stage. mesh: the ranks' mesh
+    (``parallel/mesh.py``), whose data axis splits each group."""
     from sr3_tpu_torch.training.trainer import create_model
 
     conditional = opt["model"]["diffusion"]["conditional"]
@@ -73,7 +75,7 @@ def run_stage(opt, images=None, n_samples=None):
             "Cascade stage '%s' has no path.resume_state — sampling from "
             "RANDOMLY INITIALIZED weights (outputs will be noise; fine for "
             "smoke tests, wrong for real generation).", opt.get("name"))
-    trainer = create_model(opt)
+    trainer = create_model(opt, mesh=mesh)
     trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
                                    schedule_phase="val")
     size = int(opt["model"]["diffusion"]["image_size"])
@@ -95,11 +97,14 @@ def run_stage(opt, images=None, n_samples=None):
 
 
 def run_cascade(opts, n_samples=None, input_images=None, out_dir=None,
-                save_stages=True):
+                save_stages=True, mesh=None):
     """Chain the stages in ``opts``. Returns the final image list.
 
     Writes per-stage PNGs to out_dir ({stage}_{idx}_{res}.png; the last
-    stage also as final_{idx}.png) when out_dir is set."""
+    stage also as final_{idx}.png) when out_dir is set, on the primary rank
+    of ``mesh``."""
+    if not is_primary(mesh):
+        out_dir = None
     if input_images is not None and opts and not (
             opts[0]["model"]["diffusion"]["conditional"]):
         raise ValueError(
@@ -114,7 +119,7 @@ def run_cascade(opts, n_samples=None, input_images=None, out_dir=None,
                     opt.get("name"), size,
                     "conditional" if conditional else "unconditional")
         images = run_stage(opt, images=images if conditional else None,
-                           n_samples=n_samples)
+                           n_samples=n_samples, mesh=mesh)
         if out_dir and (save_stages or k == len(opts) - 1):
             os.makedirs(out_dir, exist_ok=True)
             for i, img in enumerate(images):

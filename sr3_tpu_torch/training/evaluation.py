@@ -9,6 +9,13 @@ that the config picks, ``Trainer._chain_fn``). Each image's
 whole noise stream comes from its own ``torch.Generator`` seeded from
 (base seed, global image index) -- the role ``fold_in`` plays in the JAX
 package -- so results do not depend on the group size.
+
+On a mesh (``Trainer.mesh``) each group is split over the data axis: the
+group is rounded up to a multiple of the data size, each rank runs its
+slice with its images' own generators, and the outputs are gathered
+(``host_fetch``) and yielded in order on every rank, so sharded serving
+gives one process's images. Only the primary rank writes PNGs and metrics
+and feeds TensorBoard and W&B, as the JAX evaluators do.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 import sr3_tpu_torch.utils.metrics as Metrics
+from sr3_tpu_torch.parallel.mesh import data_slice, host_fetch, is_primary
 
 logger = logging.getLogger("base")
 
@@ -44,7 +52,10 @@ class GroupedEvaluator:
 
     def __init__(self, trainer, group_size=None, base_seed=None):
         self.trainer = trainer
-        self.group = max(1, int(group_size or 0))
+        self.mesh = getattr(trainer, "mesh", None)
+        n_data = 1 if self.mesh is None else self.mesh.data.size
+        group = max(1, int(group_size or 0))
+        self.group = -(-group // n_data) * n_data
         if base_seed is None:
             base_seed = int(trainer.rng.integers(2 ** 62))
         self.base_seed = base_seed
@@ -73,7 +84,11 @@ class GroupedEvaluator:
     def _flush_sr(self, buf, idx0, continous):
         pad = self.group - len(buf)
         xs = np.stack([it["SR"] for it in buf] + [buf[-1]["SR"]] * pad)
-        out = self.trainer.test_batched(xs, self._generators(idx0), continous)
+        part = data_slice(self.group, self.mesh)
+        out = self.trainer.test_batched(xs[part],
+                                        self._generators(idx0)[part],
+                                        continous)
+        out = host_fetch(out, self.mesh)
         for j, it in enumerate(buf):
             yield it, out[j]
 
@@ -82,11 +97,20 @@ class GroupedEvaluator:
         frames (S,h,w,c) when ``continous``; sample i draws from its own
         generator, as image i does in ``run_sr``."""
         done = 0
+        part = data_slice(self.group, self.mesh)
         while done < n:
-            out = self.trainer.sample_batched(self._generators(done),
+            out = self.trainer.sample_batched(self._generators(done)[part],
                                               continous)
+            out = host_fetch(out, self.mesh)
             yield from out[:min(self.group, n - done)]
             done += self.group
+
+
+def _writer(trainer):
+    """``Metrics.save_img`` on the primary rank, a no-op on the others."""
+    if is_primary(getattr(trainer, "mesh", None)):
+        return Metrics.save_img
+    return lambda *args, **kwargs: None
 
 
 def _group_size(opt, n_items=None):
@@ -110,7 +134,9 @@ def evaluate_sr(trainer, val_set, opt, current_step, current_epoch,
     with process frames; per image the process grid and sr / hr / lr / inf
     PNGs; average PSNR and SSIM. Returns (avg_psnr, avg_ssim)."""
     result_path = opt["path"]["results"]
-    os.makedirs(result_path, exist_ok=True)
+    save_img = _writer(trainer)
+    if is_primary(getattr(trainer, "mesh", None)):
+        os.makedirs(result_path, exist_ok=True)
     log_eval = bool(wandb_logger and opt["log_eval"])
 
     ev = GroupedEvaluator(trainer, _group_size(opt, len(val_set)))
@@ -121,11 +147,11 @@ def evaluate_sr(trainer, val_set, opt, current_step, current_epoch,
         lr_img = Metrics.tensor2img(item["LR"])
         fake_img = Metrics.tensor2img(item["SR"])
         sr_img = Metrics.tensor2img(frames[-1])
-        Metrics.save_img(Metrics.tensor2img(frames),
+        save_img(Metrics.tensor2img(frames),
                          f"{result_path}/{current_step}_{idx}_sr_process.png")
         for img, tag in ((sr_img, "sr"), (hr_img, "hr"), (lr_img, "lr"),
                          (fake_img, "inf")):
-            Metrics.save_img(img,
+            save_img(img,
                              f"{result_path}/{current_step}_{idx}_{tag}.png")
         eval_psnr = Metrics.calculate_psnr(sr_img, hr_img)
         eval_ssim = Metrics.calculate_ssim(sr_img, hr_img)
@@ -157,7 +183,9 @@ def infer_sr(trainer, dataset, opt, wandb_logger=None):
     """Inference over a prepared directory: process-grid / sr / hr / inf
     PNGs per image, no metrics."""
     result_path = opt["path"]["results"]
-    os.makedirs(result_path, exist_ok=True)
+    save_img = _writer(trainer)
+    if is_primary(getattr(trainer, "mesh", None)):
+        os.makedirs(result_path, exist_ok=True)
     log_infer = bool(wandb_logger and opt["log_infer"])
 
     ev = GroupedEvaluator(trainer, _group_size(opt, len(dataset)))
@@ -167,11 +195,11 @@ def infer_sr(trainer, dataset, opt, wandb_logger=None):
         hr_img = Metrics.tensor2img(item["HR"])
         fake_img = Metrics.tensor2img(item["SR"])
         sr_img = Metrics.tensor2img(frames[-1])
-        Metrics.save_img(Metrics.tensor2img(frames),
+        save_img(Metrics.tensor2img(frames),
                          f"{result_path}/0_{idx}_sr_process.png")
-        Metrics.save_img(sr_img, f"{result_path}/0_{idx}_sr.png")
-        Metrics.save_img(hr_img, f"{result_path}/0_{idx}_hr.png")
-        Metrics.save_img(fake_img, f"{result_path}/0_{idx}_inf.png")
+        save_img(sr_img, f"{result_path}/0_{idx}_sr.png")
+        save_img(hr_img, f"{result_path}/0_{idx}_hr.png")
+        save_img(fake_img, f"{result_path}/0_{idx}_inf.png")
         if log_infer:
             wandb_logger.log_eval_data(fake_img, sr_img, hr_img)
     if log_infer:
@@ -185,7 +213,9 @@ def validate_in_train(trainer, val_set, opt, current_step, current_epoch,
     over the val set, per-image hr/sr/lr/inf PNGs and TB/W&B panels; returns
     the average PSNR. Switches the schedule train -> val -> train."""
     result_path = os.path.join(opt["path"]["results"], str(current_epoch))
-    os.makedirs(result_path, exist_ok=True)
+    save_img = _writer(trainer)
+    if is_primary(getattr(trainer, "mesh", None)):
+        os.makedirs(result_path, exist_ok=True)
     trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
                                    schedule_phase="val")
     ev = GroupedEvaluator(trainer, _group_size(opt, len(val_set)))
@@ -198,7 +228,7 @@ def validate_in_train(trainer, val_set, opt, current_step, current_epoch,
         fake_img = Metrics.tensor2img(item["SR"])
         for img, tag in ((hr_img, "hr"), (sr_img, "sr"), (lr_img, "lr"),
                          (fake_img, "inf")):
-            Metrics.save_img(img,
+            save_img(img,
                              f"{result_path}/{current_step}_{idx}_{tag}.png")
         panel = np.concatenate((fake_img, sr_img, hr_img), axis=1)
         if tb_logger:
@@ -233,13 +263,15 @@ def sample_in_train(trainer, sample_sum, opt, current_step, current_epoch,
     ``sample_sum`` val-schedule samples, one PNG each. Switches the schedule
     train -> val -> train."""
     result_path = os.path.join(opt["path"]["results"], str(current_epoch))
-    os.makedirs(result_path, exist_ok=True)
+    save_img = _writer(trainer)
+    if is_primary(getattr(trainer, "mesh", None)):
+        os.makedirs(result_path, exist_ok=True)
     trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"],
                                    schedule_phase="val")
     ev = GroupedEvaluator(trainer, _group_size(opt, sample_sum))
     for i, sample in enumerate(ev.run_uncond(sample_sum, continous=False)):
         img = Metrics.tensor2img(sample)
-        Metrics.save_img(img, f"{result_path}/{current_step}_{i + 1}_sample.png")
+        save_img(img, f"{result_path}/{current_step}_{i + 1}_sample.png")
         if wandb_logger:
             wandb_logger.log_image(f"sample_{i + 1}", img)
     trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
@@ -251,14 +283,16 @@ def evaluate_uncond(trainer, sample_sum, opt, current_step,
     """Unconditional eval phase (reference sample.py:132-162): the process
     grid and the final sample of each of ``sample_sum`` draws."""
     result_path = opt["path"]["results"]
-    os.makedirs(result_path, exist_ok=True)
+    save_img = _writer(trainer)
+    if is_primary(getattr(trainer, "mesh", None)):
+        os.makedirs(result_path, exist_ok=True)
     ev = GroupedEvaluator(trainer, _group_size(opt, sample_sum))
     for i, frames in enumerate(ev.run_uncond(sample_sum, continous=True)):
         final = Metrics.tensor2img(frames[-1])
-        Metrics.save_img(
+        save_img(
             Metrics.tensor2img(frames),
             f"{result_path}/{current_step}_{i + 1}_sample_process.png")
-        Metrics.save_img(final,
+        save_img(final,
                          f"{result_path}/{current_step}_{i + 1}_sample.png")
         if wandb_logger:
             wandb_logger.log_image(f"sample_{i + 1}", final)

@@ -17,6 +17,32 @@ host-loader step comes from one ``torch.Generator`` on the trainer's
 device, seeded from the config's seed; a resident step draws its batch and
 its loss from a generator seeded from (seed, step), as the JAX package folds
 the step into its key, so a resumed run draws what the straight run would.
+
+On a mesh (``parallel/mesh.py``; ``Trainer(opt, mesh=...)``), one process
+per rank:
+
+- data: the config's ``batch_size`` is the global batch, which the data
+  axis must divide (checked before the first step); each rank steps on its
+  slice. After the backward the gradients are summed over the space axis
+  (each space rank holds its rows' partial) and averaged over the data
+  group: ``all_reduce`` SUM of the flattened gradients in buckets, in
+  parameter order, then a division (``_reduce_gradients``). Adam and the
+  EMA then run the same way on every rank. The logged ``l_pix`` is the
+  data-group mean.
+- random draws: each data rank draws from its own generator, seeded from
+  (seed, data coordinate) (the seed itself when the data axis is 1); ranks
+  that share a data coordinate (their model and space peers) draw the same
+  numbers. A resident step draws the global batch from (seed, step) on
+  every rank, takes the rank's data slice, and draws its loss from
+  (seed, step, data coordinate). The evaluator's per-image generators do
+  not depend on the grouping, so sharded serving gives one process's
+  images.
+- model: the UNet's parameters are sharded (``UNet.set_parallel``), and
+  with them the Adam moments and the EMA.
+- checkpoints: ``save_network`` gathers whole tensors over the model axis,
+  the primary rank alone writes, and every rank meets at a barrier before
+  returning; ``load_network`` slices whole tensors. A checkpoint from N
+  ranks loads in one process, and the reverse.
 """
 
 from __future__ import annotations
@@ -27,15 +53,21 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sr3_tpu_torch.models.networks import count_params, define_G
 from sr3_tpu_torch.models.schedule import make_schedule
+from sr3_tpu_torch.parallel import sharding_rules as tp
+from sr3_tpu_torch.parallel.mesh import (barrier, data_mean, data_slice,
+                                         is_primary)
 from sr3_tpu_torch.training.evaluation import fold_seed
 from sr3_tpu_torch.training.optim import Adam
 from sr3_tpu_torch.utils.runtime import DTYPES, resolve_device
-from sr3_tpu_torch.utils.torch_compat import load_gen_pth
+from sr3_tpu_torch.utils.torch_compat import strip_reference_keys
 
 logger = logging.getLogger("base")
+# float32 gradient elements per all-reduce
+GRAD_BUCKET = 1 << 24
 
 
 def finetune_norm(net):
@@ -56,20 +88,34 @@ def finetune_norm(net):
 class Trainer:
     """Owns the diffusion model, its device, schedules, optimizer and RNGs."""
 
-    def __init__(self, opt, device=None):
+    def __init__(self, opt, device=None, mesh=None):
         self.opt = opt
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
         self.device = torch.device(device) if device is not None \
             else resolve_device()
         self.phase = opt.get("phase", "train")
         seed = opt.get("seed", 0) or 0
+        n_data = 1 if mesh is None else mesh.data.size
+        if self.phase == "train" and n_data > 1:
+            bs = ((opt.get("datasets") or {}).get("train") or {}) \
+                .get("batch_size")
+            if bs and bs % n_data:
+                raise ValueError(
+                    f"datasets.train.batch_size {bs} is the global batch; "
+                    f"the data axis ({n_data}) must divide it")
         self.diffusion = define_G(opt, device=self.device, seed=seed)
         self.netG = self.diffusion.denoise_fn
+        self.netG.set_parallel(mesh)
         self.conditional = self.diffusion.conditional
         # host RNG: the evaluator draws its base seed from it, as the JAX
         # trainer splits its key
         self.seed = seed
         self.rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed if n_data == 1 else fold_seed(seed, mesh.data.rank))
+        self.reduced_bytes = 0
         self.schedules = {}
         self.schedule_phase = None
         self.sched = None
@@ -91,6 +137,8 @@ class Trainer:
                 params = finetune_norm(self.netG)
             else:
                 params = list(self.netG.parameters())
+            names = {id(p): n for n, p in self.netG.named_parameters()}
+            self._opt_names = [names[id(p)] for p in params]
             # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8
             if params:
                 self.optimizer = Adam(params, lr=opt_cfg["lr"],
@@ -143,10 +191,45 @@ class Trainer:
                                            generator)
         if train:
             loss.backward()
+            self._reduce_gradients()
             self.optimizer.step()
         self._update_ema()
         self.step += 1
         self.log_dict["l_pix"] = loss.detach()
+
+    def _reduce_gradients(self):
+        """Sum the gradients over the space axis, then average them over
+        the data group: all_reduce SUM of the flattened float32 gradients,
+        GRAD_BUCKET elements at a time in parameter order, then a division
+        by the data size. A parameter with no gradient takes part as zeros
+        and keeps none."""
+        m = self.mesh
+        if m is None or (m.data.size == 1 and m.space.size == 1):
+            return
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        nbytes, i = 0, 0
+        while i < len(params):
+            bucket, n = [], 0
+            while i < len(params) and (
+                    not bucket or n + params[i].numel() <= GRAD_BUCKET):
+                bucket.append(params[i])
+                n += params[i].numel()
+                i += 1
+            flat = torch.cat([(p.grad if p.grad is not None
+                               else torch.zeros_like(p)).reshape(-1).float()
+                              for p in bucket])
+            for axis in (m.space, m.data):
+                if axis.size > 1:
+                    dist.all_reduce(flat, group=axis.group)
+                    nbytes += flat.numel() * flat.element_size()
+            if m.data.size > 1:
+                flat.div_(m.data.size)
+            off = 0
+            for p in bucket:
+                if p.grad is not None:
+                    p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+                off += p.numel()
+        self.reduced_bytes = nbytes
 
     # ------------------------------------------------ device-resident data
 
@@ -214,10 +297,18 @@ class Trainer:
         if self._dev_data is None:
             raise RuntimeError("load_device_dataset first")
         g = self._resident_generator
+        n_data = 1 if self.mesh is None else self.mesh.data.size
+        if batch_size % n_data:
+            raise ValueError(f"the resident batch {batch_size} is global; "
+                             f"the data axis ({n_data}) must divide it")
         for _ in range(k_steps):
             g.manual_seed(fold_seed(self.seed, self.step))
-            batch = self.sample_resident_batch(
-                *self._resident_draws(g, batch_size))
+            idx, flip = self._resident_draws(g, batch_size)
+            rows = data_slice(batch_size, self.mesh)
+            batch = self.sample_resident_batch(idx[rows], flip[rows])
+            if n_data > 1:
+                g.manual_seed(fold_seed(fold_seed(self.seed, self.step),
+                                        self.mesh.data.rank))
             self._train_step(batch, g)
 
     def _update_ema(self):
@@ -235,7 +326,13 @@ class Trainer:
             torch._foreach_copy_(ema, params)
 
     def get_current_log(self):
-        return {k: float(v) for k, v in self.log_dict.items()}
+        """The log values as floats, each the data-group mean (every rank
+        calls it together)."""
+        return {k: data_mean(v, self.mesh) for k, v in self.log_dict.items()}
+
+    @property
+    def is_primary(self):
+        return is_primary(self.mesh)
 
     # ----------------------------------------------------------- inference
 
@@ -340,15 +437,51 @@ class Trainer:
         prefix = os.path.join(self.opt["path"]["checkpoint"],
                               f"I{iter_step}_E{epoch}")
         gen_path = f"{prefix}_gen.pth"
-        torch.save({k: v.detach().cpu()
-                    for k, v in self.netG.state_dict().items()}, gen_path)
-        state = {"epoch": epoch, "iter": iter_step, "scheduler": None,
-                 "optimizer": (self.optimizer.state_dict()
-                               if self.optimizer is not None else None)}
+        # whole tensors (collectives over the model axis on every rank)
+        gen = {k: v.detach().cpu()
+               for k, v in tp.full_state_dict(self.netG).items()}
+        optim = None if self.optimizer is None else self._full_optimizer()
+        ema = None
         if self.use_ema:
-            state["ema"] = {k: v.cpu() for k, v in self.ema.items()}
-        torch.save(state, f"{prefix}_opt.pth")
-        logger.info("Saved model in [%s] ...", gen_path)
+            axis = tp.model_axis(self.netG)
+            ema = self.ema if axis is None else tp.full_tensors(
+                list(self.ema.values()), list(self.ema),
+                tp.sharded_names(self.netG), axis)
+            ema = {k: v.cpu() for k, v in ema.items()}
+        if self.is_primary:
+            torch.save(gen, gen_path)
+            state = {"epoch": epoch, "iter": iter_step, "scheduler": None,
+                     "optimizer": optim}
+            if ema is not None:
+                state["ema"] = ema
+            torch.save(state, f"{prefix}_opt.pth")
+            logger.info("Saved model in [%s] ...", gen_path)
+        barrier(self.mesh)
+
+    def _map_moments(self, sd, fn):
+        """The optimizer state dict ``sd`` with ``fn(tensor, model axis)``
+        applied to each moment of a parameter sharded over the model axis
+        (new per-parameter dicts: the optimizer's own stay untouched)."""
+        axis = tp.model_axis(self.netG)
+        if axis is None:
+            return sd
+        sharded = tp.sharded_names(self.netG)
+        sd["state"] = {
+            i: {k: fn(v, axis) if self._opt_names[i] in sharded
+                and torch.is_tensor(v) and v.dim() > 0 else v
+                for k, v in st.items()}
+            for i, st in sd["state"].items()}
+        return sd
+
+    def _full_optimizer(self):
+        """The optimizer's state dict with the sharded moments gathered
+        whole (a collective over the model axis)."""
+        return self._map_moments(self.optimizer.state_dict(),
+                                 tp.gather_dim0)
+
+    def _load_optimizer(self, sd):
+        """Load a whole optimizer state dict, cut to this rank's slices."""
+        self.optimizer.load_state_dict(self._map_moments(sd, tp.slice_dim0))
 
     def load_network(self):
         """Resume from the ``path.resume_state`` prefix: its ``_gen.pth``,
@@ -359,7 +492,8 @@ class Trainer:
             return
         gen_path = os.path.abspath(f"{load_path}_gen.pth")
         logger.info("Loading pretrained model for G [%s] ...", gen_path)
-        load_gen_pth(self.netG, gen_path)
+        sd = torch.load(gen_path, map_location="cpu", weights_only=True)
+        tp.load_full_state_dict(self.netG, strip_reference_keys(sd))
         ema = None
         opt_path = os.path.abspath(f"{load_path}_opt.pth")
         if self.phase == "train" and os.path.exists(opt_path):
@@ -368,15 +502,17 @@ class Trainer:
             self.begin_step = self.step = int(state["iter"])
             self.begin_epoch = int(state["epoch"])
             if self.optimizer is not None and state.get("optimizer"):
-                self.optimizer.load_state_dict(state["optimizer"])
+                self._load_optimizer(state["optimizer"])
             ema = state.get("ema")
         if self.use_ema:
+            if ema is not None:
+                ema = tp.slice_full(ema, self.netG)
             with torch.no_grad():
                 for name, p in self.netG.named_parameters():
                     self.ema[name].copy_(p if ema is None else ema[name])
 
 
-def create_model(opt, device=None) -> Trainer:
-    m = Trainer(opt, device=device)
+def create_model(opt, device=None, mesh=None) -> Trainer:
+    m = Trainer(opt, device=device, mesh=mesh)
     logger.info("Model [%s] is created.", m.__class__.__name__)
     return m

@@ -73,15 +73,18 @@ def parse(args):
     the logging flags.
 
     ``args`` needs: config, phase, gpu_ids, debug, enable_wandb and
-    optionally log_wandb_ckpt / log_eval / log_infer.
+    optionally log_wandb_ckpt / log_eval / log_infer and timestamp (the
+    experiment directory's, default now).
     """
     phase = args.phase
     opt = load_json_with_comments(args.config)
 
     if getattr(args, "debug", False):
         opt["name"] = "debug_{}".format(opt["name"])
+    # ranks of one run share the timestamp they agreed on (mesh.start)
+    stamp = getattr(args, "timestamp", None) or get_timestamp()
     experiments_root = os.path.join(
-        "experiments", "{}_{}".format(opt["name"], get_timestamp()))
+        "experiments", "{}_{}".format(opt["name"], stamp))
     opt["path"]["experiments_root"] = experiments_root
     for key, path in opt["path"].items():
         if "resume" not in key and "experiments" not in key:

@@ -160,7 +160,10 @@ def test_port_imports_no_jax(tmp_path):
         assert {{"sr3_tpu_torch.sample", "sr3_tpu_torch.eval",
                  "sr3_tpu_torch.cascade", "sr3_tpu_torch.data.prepare",
                  "sr3_tpu_torch.training.cascade",
-                 "sr3_tpu_torch.training.optim"}} <= set(names)
+                 "sr3_tpu_torch.training.optim",
+                 "sr3_tpu_torch.parallel.mesh",
+                 "sr3_tpu_torch.parallel.spatial",
+                 "sr3_tpu_torch.parallel.sharding_rules"}} <= set(names)
         for name in names:
             importlib.import_module(name)
         import chip_smoke

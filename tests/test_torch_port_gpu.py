@@ -18,7 +18,8 @@ Functions against autograd of the plain versions: float32 1e-4; bfloat16
 2e-2 (each side rounds its input
 gradients to bf16 once, and K2's hand backward differs from autograd's
 composition in where it rounds). K3's sums against float64 sums of the same
-inputs: s1 within 1e-5 of sum|x|, s2 within 1e-5 of s2.
+inputs: s1 within 1e-5 of sum|x|, s2 within 1e-5 of s2. K1's halo entry
+(outside statistics, halo rows) against its plain version: as K1.
 """
 
 import pytest
@@ -104,6 +105,36 @@ def test_k1_ragged_cin(gen):
     with pytest.raises(ValueError, match="multiple of 16"):
         conv_fused.gn_silu_conv3x3(*args, **kw)
     assert conv_fused.counter.n == n
+
+
+def _halo_inputs(gen, dtype, b, cin, cout, h, w, top, bottom):
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    row = lambda on: (r(b, cin, 1, w).to(dtype).contiguous(memory_format=CL)
+                      if on else None)
+    wt = (r(cout, cin, 3, 3) / (3 * cin ** 0.5)).to(dtype)
+    return (r(b, cin, h, w).to(dtype).contiguous(memory_format=CL),
+            row(top), row(bottom), 1 + 0.3 * r(b, cin), 0.2 * r(b, cin),
+            wt.contiguous(memory_format=CL), 0.1 * r(cout),
+            r(b, cout, h, w).to(dtype).contiguous(memory_format=CL))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,cout,h,w,top,bottom", [
+    (2, 64, 64, 64, 128, False, True),    # 16->128 stem level, first shard
+    (2, 128, 64, 32, 64, True, True),     # an inner shard
+    (2, 512, 512, 4, 8, True, False),     # an 8^2 map, last shard (2 rows
+    (1, 64, 3, 256, 512, True, False),    # of 4); final_conv at 512^2
+    (2, 48, 40, 5, 20, True, True),       # ragged
+])
+def test_k1_halo_entry_matches_plain(gen, dtype, b, cin, cout, h, w, top,
+                                     bottom):
+    args = _halo_inputs(gen, dtype, b, cin, cout, h, w, top, bottom)
+    n = conv_fused.halo_counter.n
+    out = conv_fused.gn_silu_conv3x3_halo(*args)
+    assert conv_fused.halo_counter.n == n + 1
+    assert out.is_contiguous(memory_format=CL) and out.dtype == dtype
+    ref = conv_fused.gn_silu_conv3x3_halo_plain(*args)
+    assert rel(out, ref) <= TOL[dtype]["k1"]
 
 
 def _k1_inputs(gen, dtype, b, cin, cout, h, w, film):
