@@ -45,6 +45,8 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
      steps on seeded synthetic (HR, SR) batches; counters zeroed just
      before, and K1, K2, K4, K5 and K6 must all have launched; every loss
      finite, every parameter with a finite gradient, every parameter moved;
+     then get_current_log has l_pix, step_time_ms and imgs_per_sec, all
+     finite and positive (the JAX trainer's keys);
   8. training gradients: one float32 batch-1 loss and backward of the
      full-width UNet with injected noise, sqrt-gamma and the same dropout
      draws, kernels against the plain ops swapped into the UNet module;
@@ -100,10 +102,12 @@ model at batches 2, 4 and 8, and K4-K6 at (b, 256, 128) and (b, 16, 256)):
      counters zeroed before each; UNet forwards equal to the steps, finite
      outputs; ms of a whole chain (median of 3), images/s, device ops per
      UNet forward;
- 19. -p val: evaluate_sr on 2 seeded images at T=10 with Metrics.save_img
-     replaced by a recorder (this script only: the card's machine has no
-     cv2 or Pillow); every file asked for at its shape, PSNR and SSIM equal
-     to those of the recorded arrays, every forward kernel launched;
+ 19. -p val: evaluate_sr on 2 seeded images at T=10, writing its PNGs
+     through Metrics.save_img (the port's PNG codec: the card's machine has
+     neither cv2 nor Pillow); every file asked for at its shape and read
+     back equal to the array written, PSNR and SSIM equal to those of the
+     arrays and to what python -m sr3_tpu_torch.eval -p <that dir> reads
+     from the files (in-process), every forward kernel launched;
  20. ddpm 16->128 (configs/sr_ddpm_16_128.json): float32 forward on the
      card against the CPU at t = 1999 (FORWARD_TOL); run_sr of 2 images,
      bf16, T=10; NEW_TRAIN_STEPS train steps at batch 4 through train_loop
@@ -151,6 +155,37 @@ Adam first moment and the device-resident dataset:
 After phase 29 the bf16 K1 tiles, and K2's (dtype, cluster size,
 residency), launched since phase 3 (the main paths and the timing) must
 all be ones that phase 3 checked.
+The JAX package's host modules in the port (phase 35 runs right after
+phase 5, as early as it can: late in a long process the profiler has kept
+no record of whole windows; phase 38 right after phase 19, on its files;
+36 and 37 after phase 9):
+ 35. profiler trace: utils/profiler.trace around two bf16 batch-8 serving
+     steps writes one TensorBoard trace file whose device kernels include
+     K1's conv (gn_silu_conv3x3_*) and K4 (flash_fwd_*);
+ 36. host data pipeline: the 16->128 trainer at batch 4. float32 on the
+     committed fixture PNGs (dataset/fixtures_16_128, decoded by the
+     port's codec): 3 steps fed host arrays and the same 3 steps through
+     train_loop's device_prefetch (pinned on its own thread, a side
+     stream), same seeds, deterministic cuDNN: bit-equal losses. The
+     codec's decode ms an image, filter 0 and Paeth rows at 128^2 and
+     1024^2 and the fixture's files. bf16 on 2048 seeded pairs of PNGs
+     written here (Paeth rows, the RAM cache off, so every batch decodes):
+     the synthetic batches and the files with 0 and 8 workers, each fed
+     host arrays and through device_prefetch, in alternating rounds of
+     windows of 25 steps: ms a step, the launching thread's CPU ms a
+     step, per-round differences and device busy share (printed, not
+     gated); train_loop from the files with 8
+     workers must launch K1, K2, K4-K6; the training log's keys;
+ 37. LMDB: the port's fake_lmdb as lmdb; prepare over the fixture's HR
+     images into PNG directories and into an LMDB; the LMDB dataset's val
+     items bit-equal to the directories'; 2 bf16 train steps from the LMDB
+     dataset through train_loop (finite losses, every parameter moved,
+     K1, K2, K4-K6 launched);
+ 38. FID: RandomFeatureExtractor(seed 0, width 192) on 256 seeded 128^2
+     images on the card, float32, within 1e-5 of max|f| of the CPU's;
+     images/s at batch 64; python -m sr3_tpu_torch.fid_eval -p <phase 19's
+     dir> (in-process) prints a finite proxy-FID; --extractor inception
+     raises the ImportError naming torchvision.
 The parallel paths (sr3_tpu_torch/parallel), two ranks started through
 ``torch.distributed.run --standalone``, each running ``chip_smoke.py
 --rank DIR BACKEND``: nccl with one card a rank where the machine has two or more,
@@ -185,7 +220,9 @@ the card either way; the ranks' output is printed after them:
 Then one JSON line with every kernel's route, source, the TPU kernel it
 replaces, launches in phase 12 (K1's halo entry: in phase 33's 512^2
 forward; and on the other paths: launches_* keys, each path's counters
-zeroed just before it; the parallel paths from rank 0), max error and times
+zeroed just before it; the parallel paths from rank 0; phase 36's 8-worker
+run and phase 37's steps as launches_16_128_train_files / _lmdb), max error
+and times
 (timings_sample_ddpm_128: phase 22; timings_128_1024: phase 29), and
 last the line {"ok": true,
 "device": {...}}. Without a CUDA
@@ -193,10 +230,14 @@ device, or without the rest of the repository beside it, it exits non-zero
 and prints no result.
 """
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -983,6 +1024,7 @@ def training_phase(torch):
                              "dropout 0.2")
     loader = _synthetic_batches(np, TRAIN_STEPS, b, seed=4)
     launches = _train_loop_checked(torch, trainer, opt, loader, KERNELS_16_128)
+    _log_checked(trainer, "training path")
     return trainer, launches
 
 
@@ -2243,19 +2285,20 @@ def strided_phase(torch, trainer):
 
 
 @phase("-p val")
-def val_phase(torch, trainer):
+def val_phase(torch, trainer, results):
     """evaluate_sr (what ``python -m sr3_tpu_torch.sr -p val`` runs) on 2
     seeded synthetic 16->128 images with the serving trainer (bf16, T=10),
-    counters zeroed just before. The card's machine has neither cv2 nor
-    Pillow, so here (in this script only) Metrics.save_img is replaced by a
-    recorder of each array it is asked to write: every file of the
-    evaluation must be asked for, at its shape, and the PSNR and SSIM that
-    evaluate_sr returns must equal those computed from the recorded sr /
-    hr arrays."""
-    import tempfile
-
+    counters zeroed just before; it writes its PNGs into ``results``
+    through Metrics.save_img (on the card's machine, which has neither cv2
+    nor Pillow, the port's PNG codec), wrapped here only to keep a copy of
+    each array it writes. Every file asked for at its shape; each file read
+    back (Metrics.load_img) equal to the array written; the PSNR and SSIM
+    that evaluate_sr returns equal to those of the arrays and to what
+    ``python -m sr3_tpu_torch.eval -p results`` (run in-process) reads from
+    the files."""
     import numpy as np
 
+    import sr3_tpu_torch.eval as port_eval
     import sr3_tpu_torch.utils.metrics as Metrics
     from sr3_tpu_torch.models.diffusion import _snapshot_count
     from sr3_tpu_torch.training.evaluation import evaluate_sr
@@ -2263,34 +2306,45 @@ def val_phase(torch, trainer):
     opt = trainer.opt
     items = _sr_items(torch, 2, seed=24)
     written = {}
+    save_img = Metrics.save_img
 
-    def record(img, path):
+    def save_and_keep(img, path):
+        save_img(img, path)
         written[os.path.basename(path)] = np.array(img)
 
-    save_img, results = Metrics.save_img, opt["path"]["results"]
-    with tempfile.TemporaryDirectory() as tmp:
-        opt["path"]["results"] = tmp
-        Metrics.save_img = record
-        try:
-            for c in counters():
-                c.n = 0
-            psnr, ssim = evaluate_sr(trainer, items, opt, current_step=0,
-                                     current_epoch=0)
-            launches = forward_launches()
-        finally:
-            Metrics.save_img = save_img
-            opt["path"]["results"] = results
+    prev = opt["path"]["results"]
+    opt["path"]["results"] = results
+    Metrics.save_img = save_and_keep
+    try:
+        for c in counters():
+            c.n = 0
+        psnr, ssim = evaluate_sr(trainer, items, opt, current_step=0,
+                                 current_epoch=0)
+        launches = forward_launches()
+    finally:
+        Metrics.save_img = save_img
+        opt["path"]["results"] = prev
     want = {f"0_{i}_{tag}.png" for i in (1, 2)
             for tag in ("sr_process", "sr", "hr", "lr", "inf")}
     shapes = {n: (a.shape, str(a.dtype)) for n, a in sorted(written.items())}
+    on_disk = {n: Metrics.load_img(os.path.join(results, n))
+               for n in sorted(os.listdir(results))}
     pairs = [(written[f"0_{i}_sr.png"], written[f"0_{i}_hr.png"])
              for i in (1, 2)]
     ref_psnr = sum(Metrics.calculate_psnr(a, b) for a, b in pairs) / 2
     ref_ssim = sum(Metrics.calculate_ssim(a, b) for a, b in pairs) / 2
+    scored = os.path.join(os.path.dirname(results), "eval.json")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = port_eval.main(["-p", results, "--json", scored])
+    with open(scored) as f:
+        scores = json.load(f)
     print(f"  evaluate_sr {trainer.netG.dtype}, T="
           f"{trainer.sched.num_timesteps}: PSNR {psnr:.4f} SSIM {ssim:.4f} "
-          f"(from the recorded arrays {ref_psnr:.4f}, {ref_ssim:.4f}); "
-          f"files {shapes}; launches {launches}", flush=True)
+          f"(from the written arrays {ref_psnr:.4f}, {ref_ssim:.4f}; "
+          f"sr3_tpu_torch.eval from the files {scores['avg_psnr']:.4f}, "
+          f"{scores['avg_ssim']:.4f}, {scores['count']} pairs); files "
+          f"{shapes}; launches {launches}", flush=True)
+    print("  " + out.getvalue().strip().replace("\n", "\n  "), flush=True)
     n_snap, _ = _snapshot_count(trainer.sched.num_timesteps)
     grid = Metrics.tensor2img(np.zeros((1 + n_snap, 128, 128, 3))).shape
     want_shape = {"sr_process": grid, "lr": (16, 16, 3)}
@@ -2298,11 +2352,19 @@ def val_phase(torch, trainer):
         a.dtype == np.uint8
         and a.shape == want_shape.get(n[4:-4], (128, 128, 3))
         for n, a in written.items())
-    if set(written) != want or not ok_shapes:
-        raise AssertionError(f"evaluate_sr wrote {shapes}, want {sorted(want)}")
-    if (psnr, ssim) != (ref_psnr, ref_ssim):
+    if set(written) != want or set(on_disk) != want or not ok_shapes:
+        raise AssertionError(f"evaluate_sr wrote {shapes}, on disk "
+                             f"{sorted(on_disk)}, want {sorted(want)}")
+    differ = [n for n in want if not np.array_equal(on_disk[n], written[n])]
+    if differ:
+        raise AssertionError(f"files read back unlike what was written: "
+                             f"{differ}")
+    if (psnr, ssim) != (ref_psnr, ref_ssim) or rc != 0 or (
+            scores["count"], scores["avg_psnr"], scores["avg_ssim"]) != (
+            2, psnr, ssim):
         raise AssertionError(f"PSNR / SSIM {psnr}, {ssim} against "
-                             f"{ref_psnr}, {ref_ssim}")
+                             f"{ref_psnr}, {ref_ssim} and the scorer's "
+                             f"{scores}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel did not launch: {launches}")
     return launches
@@ -2762,6 +2824,485 @@ def kernel_timing_1024_phase(torch):
         _attention_entries(torch, g, entry, bh, seq, d)
     return out
 
+
+
+# ------------------------------------------- the JAX package's host modules
+# the committed 16->128 fixture set (6 triplets of PNGs); the pairs of the
+# loader's timing set, the steps of a timed window and its rounds
+FIXTURES = os.path.join(ROOT, "dataset", "fixtures_16_128")
+LOADER_F32_STEPS = 3
+LOADER_SET = 2048
+LOADER_WINDOW = 25
+LOADER_ROUNDS = 4
+LOADER_PROFILE_STEPS = 4
+LOADER_WORKERS = 8
+FID_IMAGES = 256
+FID_BATCH = 64
+FID_TOL = 1e-5
+
+
+def _log_checked(trainer, label):
+    """The trainer's log has the JAX trainer's keys, all finite and
+    positive."""
+    import math
+
+    log = trainer.get_current_log()
+    print(f"  {label} get_current_log: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in log.items()), flush=True)
+    if (sorted(log) != ["imgs_per_sec", "l_pix", "step_time_ms"]
+            or not all(math.isfinite(v) and v > 0 for v in log.values())):
+        raise AssertionError(f"training log {log}")
+
+
+@phase("profiler trace")
+def trace_phase(torch, trainer, workdir):
+    """sr3_tpu_torch.utils.profiler.trace around two bf16 serving steps
+    (p_sample_step at batch 8 of the T=2000 chain): one trace file, whose
+    device kernels include K1's conv and K4."""
+    import glob
+
+    from sr3_tpu_torch.models.schedule import make_schedule
+    from sr3_tpu_torch.utils.profiler import trace
+
+    sched = make_schedule(dict(schedule="linear", n_timestep=2000,
+                               linear_start=1e-6, linear_end=1e-2), "cuda")
+    net = trainer._eval_params()
+    g = torch.Generator(device="cuda").manual_seed(41)
+    cond = torch.rand(BATCH_TIME, 3, 128, 128, device="cuda",
+                      generator=g) * 2 - 1
+    img = torch.randn(BATCH_TIME, 3, 128, 128, device="cuda", generator=g)
+    log_dir = os.path.join(workdir, "trace")
+    with torch.inference_mode():
+        trainer.diffusion.p_sample_step(net, sched, img, 1999, cond,
+                                        generator=g)  # warm
+        with trace(log_dir):
+            for t in (1998, 1997):
+                trainer.diffusion.p_sample_step(net, sched, img, t, cond,
+                                                generator=g)
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    print(f"  trace {os.path.basename(files[0])}: "
+          f"{os.path.getsize(files[0]) / 1e6:.1f} MB, {len(events)} events, "
+          f"{len(kernels)} distinct device kernels", flush=True)
+    for want in ("gn_silu_conv3x3_", "flash_fwd_"):
+        hits = sorted(_short(k) for k in kernels if want in k)
+        print(f"    {want}*: {hits[:4]}", flush=True)
+        if not hits:
+            raise AssertionError(f"no {want}* kernel in the trace")
+
+
+def _fixture_opt(dtype, num_workers=0):
+    """The 16->128 train config at batch 4 on the committed fixture PNGs."""
+    opt = _load_opt(dtype=dtype, phase="train")
+    opt["datasets"]["train"].update(
+        dataroot=FIXTURES, datatype="img", data_len=-1, num_workers=num_workers)
+    opt["train"].update(print_freq=10 ** 9, val_freq=10 ** 9,
+                        save_checkpoint_freq=10 ** 9)
+    return opt
+
+
+def _fixture_trainer(opt):
+    from sr3_tpu_torch.training.trainer import create_model
+
+    trainer = create_model(opt)
+    trainer.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                                   schedule_phase="train")
+    return trainer
+
+
+def _epochs(loader):
+    while True:
+        yield from loader
+
+
+def _loop_steps(trainer, opt, loader, n):
+    """n steps of train_loop (the loader through device_prefetch)."""
+    from sr3_tpu_torch.training.loops import train_loop
+
+    trainer.begin_step = trainer.step
+    opt["train"]["n_iter"] = trainer.step + n
+    train_loop(trainer, loader, opt, lambda s, e: None)
+
+
+def _paeth_png(np, img):
+    """PNG bytes of uint8 RGB ``img`` with the Paeth filter on every row,
+    as Pillow's and libpng's writers choose for almost every row of a
+    photograph (125-127 of the 128 rows of each fixture HR image)."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    x = img.astype(np.int16)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    raw = np.empty((h, 1 + 3 * w), np.uint8)
+    raw[:, 0] = 4
+    raw[:, 1:] = ((x - pred) & 0xFF).reshape(h, 3 * w)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def _decode_timing(np):
+    """ms per image of the port's PNG decoder (median of repeats), each
+    file checked against the pixels written: filter 0 (the port's encoder)
+    and Paeth on every row at 128^2 and 1024^2, and the fixture's
+    Pillow-written 128^2 HR and 512^2 files."""
+    import glob
+
+    from sr3_tpu_torch.utils import png
+
+    rng = np.random.default_rng(36)
+    files = {}
+    for side in (128, 1024):
+        low = rng.integers(0, 256, (side // 8, side // 8, 3), np.uint8)
+        img = np.clip(np.repeat(np.repeat(low, 8, 0), 8, 1).astype(np.int16)
+                      + rng.integers(-12, 13, (side, side, 3)), 0, 255) \
+            .astype(np.uint8)
+        files[f"{side}^2 filter 0"] = img, png.encode(img)
+        files[f"{side}^2 Paeth"] = img, _paeth_png(np, img)
+    for path in (sorted(glob.glob(os.path.join(FIXTURES, "hr_128", "*")))[0],
+                 sorted(glob.glob(os.path.join(ROOT, "dataset",
+                                               "fixtures_64_512", "hr_512",
+                                               "*")))[0]):
+        with open(path, "rb") as f:
+            data = f.read()
+        img = png.decode(data)
+        files[f"{img.shape[0]}^2 fixture {os.path.basename(path)}"] = \
+            img, data
+    out = {}
+    for label, (img, data) in files.items():
+        if not np.array_equal(png.decode(data), img):
+            raise AssertionError(f"decode of {label} differs")
+        n = 20 if img.shape[0] <= 128 else 3
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            png.decode(data)
+            ms.append(1000 * (time.perf_counter() - t0))
+        out[label] = float(np.median(ms))
+        print(f"  decode {label}: {out[label]:.3f} ms an image "
+              f"(median of {n}, {len(data) / 1e3:.1f} kB)", flush=True)
+    return out
+
+
+def _write_loader_set(np, root, n):
+    """n seeded 16->128 training pairs as PNGs, hr_128 and sr_16_128, Paeth
+    on every row: SR the 8x upsampled 16^2 image, HR that plus noise."""
+    rng = np.random.default_rng(360)
+    for d in ("hr_128", "sr_16_128"):
+        os.makedirs(os.path.join(root, d))
+    for i in range(n):
+        low = rng.integers(0, 256, (16, 16, 3), np.uint8)
+        sr = np.repeat(np.repeat(low, 8, 0), 8, 1)
+        hr = np.clip(sr.astype(np.int16)
+                     + rng.integers(-12, 13, sr.shape), 0, 255) \
+            .astype(np.uint8)
+        for d, img in (("hr_128", hr), ("sr_16_128", sr)):
+            with open(os.path.join(root, d, f"{i:05d}.png"), "wb") as f:
+                f.write(_paeth_png(np, img))
+
+
+@phase("host data pipeline")
+def loader_phase(torch, workdir):
+    """16->128 training at batch 4 from PNGs decoded on this machine by the
+    port's codec. float32, on the committed fixture set: LOADER_F32_STEPS
+    steps with num_workers 0 fed host arrays (feed_data) and the same steps
+    through train_loop (device_prefetch: pinned memory, a side stream),
+    from the same seeds (generator, ``random``), cuDNN deterministic: the
+    losses bit-equal. The decoder's ms an image (_decode_timing). bf16, on
+    LOADER_SET seeded pairs written here (Paeth rows, the dataset's RAM
+    cache off, so every batch decodes its files): windows of LOADER_WINDOW
+    steps of the synthetic batches and of the files with 0 and
+    LOADER_WORKERS workers, each fed host arrays and through
+    device_prefetch, every setting once a round for LOADER_ROUNDS rounds,
+    the order reversed every other round, each window from a fresh
+    iterator filled by 2 untimed steps; each setting's median ms a step,
+    the launching thread's CPU ms a step (``time.thread_time``), its
+    per-round differences, and the device busy share of a profiled
+    window (printed, not gated). Then train_loop from the files with
+    LOADER_WORKERS workers, counters zeroed just before: K1, K2, K4-K6
+    launched; the trainer's log."""
+    import functools
+    import itertools
+    import random
+    import statistics
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from sr3_tpu_torch.data.loader import create_dataloader, create_dataset
+    from sr3_tpu_torch.data.prefetch import device_prefetch
+
+    opt = _fixture_opt("float32")
+    b = opt["datasets"]["train"]["batch_size"]
+    dataset = create_dataset(opt["datasets"]["train"], "train")
+    print(f"  {len(dataset)} fixture triplets from {FIXTURES}, batch {b}",
+          flush=True)
+    losses = {}
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for how in ("feed_data", "device_prefetch"):
+            trainer = _fixture_trainer(opt)
+            loader = create_dataloader(dataset, opt["datasets"]["train"],
+                                       "train")
+            random.seed(37)
+            if how == "feed_data":
+                batches = _epochs(loader)
+                for _ in range(LOADER_F32_STEPS):
+                    trainer.feed_data(next(batches))
+                    trainer.optimize_parameters()
+                    losses.setdefault(how, []).append(
+                        trainer.log_dict["l_pix"].item())
+            else:
+                step = trainer.optimize_parameters
+
+                def logged():
+                    step()
+                    losses.setdefault(how, []).append(
+                        trainer.log_dict["l_pix"].item())
+
+                trainer.optimize_parameters = logged
+                _loop_steps(trainer, opt, loader, LOADER_F32_STEPS)
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    torch.cuda.empty_cache()
+    print(f"  float32 losses, num_workers 0: feed_data {losses['feed_data']}"
+          f", train_loop with device_prefetch {losses['device_prefetch']}",
+          flush=True)
+    if (len(losses["feed_data"]) != LOADER_F32_STEPS
+            or losses["feed_data"] != losses["device_prefetch"]):
+        raise AssertionError("the prefetched batches train otherwise")
+    _decode_timing(np)
+
+    root = os.path.join(workdir, "loader_set")
+    t0 = time.perf_counter()
+    _write_loader_set(np, root, LOADER_SET)
+    print(f"  wrote {LOADER_SET} seeded pairs (Paeth rows) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    opt = _fixture_opt("bfloat16", num_workers=LOADER_WORKERS)
+    opt["datasets"]["train"].update(dataroot=root, cache=False)
+    files = create_dataset(opt["datasets"]["train"], "train")
+    if len(files) != LOADER_SET or files._cache is not None:
+        raise AssertionError("the timing set is not read from its files")
+    trainer = _fixture_trainer(opt)
+    loaders = {w: create_dataloader(files, {**opt["datasets"]["train"],
+                                            "num_workers": w}, "train")
+               for w in (0, LOADER_WORKERS)}
+    synthetic = _synthetic_batches(np, 8, b, seed=38)
+
+    def cycled():
+        yield from itertools.cycle(synthetic)
+
+    def setting(source, prefetch):
+        """A new batch iterator and the generators to close after it."""
+        def make():
+            src = source()
+            return ((device_prefetch(src, trainer.device), src) if prefetch
+                    else (src, src))
+        return make
+
+    settings = {}
+    for name, source in (("synthetic", cycled),
+                         *((f"files, {w} workers",
+                            functools.partial(_epochs, loaders[w]))
+                           for w in loaders)):
+        settings[f"{name}, feed_data"] = setting(source, False)
+        settings[f"{name}, device_prefetch"] = setting(source, True)
+
+    def window(make, n):
+        """Wall and this thread's CPU ms a step over n steps."""
+        it, src = make()
+        try:
+            for i in range(2 + n):
+                if i == 2:
+                    torch.cuda.synchronize()
+                    t0, c0 = time.perf_counter(), time.thread_time()
+                batch = next(it)
+                batch.pop("_epoch", None)
+                trainer.feed_data(batch)
+                trainer.optimize_parameters()
+            torch.cuda.synchronize()
+            return (1000 * (time.perf_counter() - t0) / n,
+                    1000 * (time.thread_time() - c0) / n)
+        finally:
+            it.close()
+            src.close()
+
+    window(settings["synthetic, feed_data"], 2)  # warm
+    ms = {label: [] for label in settings}
+    cpu = {label: [] for label in settings}
+    for r in range(LOADER_ROUNDS):
+        for label in (list(settings) if r % 2 == 0 else
+                      list(settings)[::-1]):
+            wall, host = window(settings[label], LOADER_WINDOW)
+            ms[label].append(wall)
+            cpu[label].append(host)
+    for label, make in settings.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window(make, LOADER_PROFILE_STEPS)
+        busy = _device_busy(torch, prof) / LOADER_PROFILE_STEPS
+        med = statistics.median(ms[label])
+        print(f"  bf16 {label}: median {med:.3f} ms/step "
+              f"({b / med * 1000:.2f} train img/s), windows "
+              f"{[round(m, 3) for m in ms[label]]}; the launching "
+              f"thread's CPU {statistics.median(cpu[label]):.3f} ms/step; "
+              f"device busy {busy:.1f} ms/step ({100 * busy / med:.1f}% of "
+              f"the median; {LOADER_PROFILE_STEPS} profiled steps)",
+              flush=True)
+    for a, c in (("synthetic, feed_data", "synthetic, device_prefetch"),
+                 *((f"files, {w} workers, feed_data",
+                    f"files, {w} workers, device_prefetch") for w in loaders),
+                 *((f"files, 0 workers, {how}",
+                    f"files, {LOADER_WORKERS} workers, {how}")
+                   for how in ("feed_data", "device_prefetch"))):
+        d = [y - x for x, y in zip(ms[a], ms[c])]
+        print(f"  ({c}) - ({a}) per round, ms/step: "
+              f"{[round(x, 3) for x in d]}, median "
+              f"{statistics.median(d):.3f}", flush=True)
+
+    for c in counters():
+        c.n = 0
+    _loop_steps(trainer, opt, loaders[LOADER_WORKERS], LOADER_PROFILE_STEPS)
+    torch.cuda.synchronize()
+    launches = launches_of(KERNELS_16_128)
+    print(f"  train_loop from the files, {LOADER_WORKERS} workers and "
+          f"device_prefetch, launches: {launches}", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+    _log_checked(trainer, "bf16 files")
+    return trainer, launches
+
+
+@phase("LMDB")
+def lmdb_phase(torch, trainer, workdir):
+    """The port's fake_lmdb installed as ``lmdb`` (the card's machine has no
+    lmdb package); ``prepare`` over the fixture's 128^2 HR images at sizes
+    16, 128 into PNG directories and into an LMDB (the port's PNG codec
+    encodes and decodes here); the LMDB dataset's val items bit-equal to
+    the PNG dataset's; two bf16 train steps at batch 4 from the LMDB
+    dataset through train_loop (counters zeroed just before; finite losses,
+    every parameter with a finite gradient that moved, K1, K2, K4-K6
+    launched)."""
+    import itertools
+
+    import numpy as np
+
+    from sr3_tpu_torch.data import fake_lmdb
+    from sr3_tpu_torch.data.loader import DataLoader
+    from sr3_tpu_torch.data.lrhr import LRHRDataset
+    from sr3_tpu_torch.data.prepare import prepare
+
+    if "lmdb" in sys.modules:
+        raise AssertionError("an lmdb module is already imported")
+    sys.modules["lmdb"] = fake_lmdb
+    try:
+        src = os.path.join(FIXTURES, "hr_128")
+        roots = {kind: os.path.join(workdir, kind) for kind in ("img", "lmdb")}
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            prepare(src, roots["img"], sizes=(16, 128))
+            prepare(src, roots["lmdb"], sizes=(16, 128), lmdb_save=True)
+        sets = {kind: LRHRDataset(root, kind, 16, 128, split="val",
+                                  need_LR=True)
+                for kind, root in roots.items()}
+        items = {kind: [ds[i] for i in range(len(ds))]
+                 for kind, ds in sets.items()}
+        equal = len(items["img"]) == len(items["lmdb"]) > 0 and all(
+            np.array_equal(a[k], c[k]) for a, c in zip(*items.values())
+            for k in ("LR", "SR", "HR"))
+        print(f"  {said.getvalue().strip().replace(chr(10), '; ')}; LMDB store "
+              f"{os.path.getsize(os.path.join(roots['lmdb'], 'data.pkl')) / 1e3:.1f} kB; "
+              f"{len(items['lmdb'])} val items bit-equal to the PNG "
+              f"directories': {equal}", flush=True)
+        if not equal:
+            raise AssertionError("the LMDB items differ from the PNG items")
+        train = LRHRDataset(roots["lmdb"], "lmdb", 16, 128, split="train")
+        b = trainer.opt["datasets"]["train"]["batch_size"]
+        loader = DataLoader(train, b, shuffle=True, drop_last=True,
+                            num_workers=2)
+        batches = list(itertools.islice(_epochs(loader), 2))
+        opt = trainer.opt
+        trainer.begin_step = trainer.step
+        opt["train"]["n_iter"] = trainer.step + len(batches)
+        opt["train"]["print_freq"] = 1
+        launches = _train_loop_checked(torch, trainer, opt, batches,
+                                       KERNELS_16_128)
+    finally:
+        del sys.modules["lmdb"]
+    return launches
+
+
+@phase("FID")
+def fid_phase(torch, results):
+    """The proxy-FID extractor (RandomFeatureExtractor, seed 0, width 192)
+    on FID_IMAGES seeded synthetic 128^2 images on the card in float32:
+    features within FID_TOL of max|f| of the same module on the CPU;
+    images/s at batch FID_BATCH; ``python -m sr3_tpu_torch.fid_eval -p``
+    phase 19's results (in-process): a finite proxy-FID; ``--extractor
+    inception`` raises the ImportError that names torchvision."""
+    import math
+
+    import numpy as np
+
+    import sr3_tpu_torch.fid_eval as fid_eval
+    from sr3_tpu_torch.utils.fid import RandomFeatureExtractor
+
+    images = np.random.default_rng(42).integers(
+        0, 256, (FID_IMAGES, 128, 128, 3), dtype=np.uint8)
+    card = RandomFeatureExtractor(seed=0, width=192)
+    if next(card.parameters()).device.type != "cuda":
+        raise AssertionError("the extractor is not on the card")
+    feats = card(images, FID_BATCH)
+    ref = RandomFeatureExtractor(seed=0, width=192, device="cpu")(
+        images, FID_BATCH)
+    err = np.abs(feats - ref).max() / np.abs(ref).max()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        card(images, FID_BATCH)
+    torch.cuda.synchronize()
+    ips = 3 * FID_IMAGES / (time.perf_counter() - t0)
+    print(f"  RandomFeatureExtractor(0, 192) float32 on "
+          f"{next(card.parameters()).device}: features {feats.shape}, "
+          f"card vs CPU {err:.3e} of max|f| (tol {FID_TOL:g}); "
+          f"{ips:.1f} images/s at batch {FID_BATCH} (uint8 host images "
+          f"in, host features out)", flush=True)
+    if not err <= FID_TOL:
+        raise AssertionError(f"extractor features {err} > {FID_TOL}")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        fid_eval.main(["-p", results])
+    line = out.getvalue().strip()
+    print(f"  sr3_tpu_torch.fid_eval -p <phase 19's results>: {line}",
+          flush=True)
+    if not (line.startswith("# proxy-FID (seed 0, width 192, 2 real / 2 "
+                            "fake): ")
+            and math.isfinite(float(line.rsplit(":", 1)[1]))):
+        raise AssertionError(f"fid_eval printed {line!r}")
+    try:
+        fid_eval.main(["-p", results, "--extractor", "inception"])
+    except ImportError as e:
+        if "torchvision" not in str(e):
+            raise
+        print(f"  --extractor inception: ImportError {e}", flush=True)
+    else:
+        raise AssertionError("--extractor inception ran without torchvision")
 
 
 # ---------------------------------------------------------------------------
@@ -3387,6 +3928,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    results = os.path.join(workdir, "results")
     try:
         device_phase(torch)
         build_phase()
@@ -3396,9 +3939,11 @@ def main():
         gn_launch_phase(torch)
         trainer = model_phase(torch)
         serving = serving_phase(torch, trainer)
+        trace_phase(torch, trainer, workdir)
         times = timing_phase(torch, trainer)
         strided = strided_phase(torch, trainer)
-        val = val_phase(torch, trainer)
+        val = val_phase(torch, trainer, results)
+        fid_phase(torch, results)
         del trainer
         trainer, launches_128 = training_phase(torch)
         grad_check_phase(torch)
@@ -3406,6 +3951,11 @@ def main():
         times.update(train_times)
         f32_state_bytes = _optimizer_state_bytes(trainer)
         del trainer
+        # the host data pipeline from the committed PNGs, and LMDB
+        trainer, launches_files = loader_phase(torch, workdir)
+        launches_lmdb = lmdb_phase(torch, trainer, workdir)
+        del trainer
+        torch.cuda.empty_cache()
         # the SR3 64->512 training path, and its serving path
         k3_phase(torch, errs)
         long_attention_phase(torch, errs)
@@ -3438,6 +3988,8 @@ def main():
     except Exception:  # report any phase's failure, print no result
         traceback.print_exc()
         return 1
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     halo = par["space"]["halo"]["errs"]
     errs["gn_silu_conv3x3_halo"] = {
         "max_abs_err": max(e[0] for e in halo.values()),
@@ -3450,7 +4002,9 @@ def main():
         "16_128_forward_model2": par["model"]["forward_launches"],
         "64_512_serving_space2": par["space"]["bfloat16_b8"]["launches"],
         "64_512_train_space2": par["space"]["bfloat16_train"]["launches"],
-        "128_1024_serving_space2": par["space"]["1024"]["launches"]}
+        "128_1024_serving_space2": par["space"]["1024"]["launches"],
+        "16_128_train_files": launches_files,
+        "16_128_train_lmdb": launches_lmdb}
     kernels = []
     for name, (source, replaces, routes) in KERNELS.items():
         entry = {

@@ -3,7 +3,15 @@
 Counterpart of the host-loader path of ``sr3_tpu/data/loader.py``
 (``create_dataset``, ``DataLoader``, ``create_dataloader``): the port's own
 ``LRHRDataset`` from a dataset config, a seeded shuffle per epoch,
-``drop_last`` for training, and numpy collation of the dataset's NHWC items.
+``drop_last`` for training, numpy collation of the dataset's NHWC items,
+and the JAX loader's concurrency: with ``num_workers`` > 0 a producer
+thread fetches the items of each batch on a ``ThreadPoolExecutor`` of that
+many threads and puts the collated batch on a queue of ``prefetch`` (2)
+batches; an exception in the producer is put on the queue and raised by the
+consumer, and a consumer that stops early stops the producer. The batches
+and their order do not depend on ``num_workers`` (``map`` keeps order); the
+train split's flips draw from the module-level ``random`` as the JAX
+transform does, so with workers they follow the threads' order, as there.
 
 On a mesh each rank reads a disjoint part of every epoch, as the JAX
 loader's processes do (``sr3_tpu/data/loader.py`` ``_batches``): every rank
@@ -18,6 +26,9 @@ is batch 1, unshuffled and unsharded, as the JAX one.
 from __future__ import annotations
 
 import logging
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -58,13 +69,17 @@ class DataLoader:
     """Iterable over the batches of one pass of ``dataset`` per iteration."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False,
-                 seed=0, shard=(0, 1)):
+                 seed=0, shard=(0, 1), num_workers=0, prefetch=2):
         """``batch_size`` is the global batch; ``shard = (coordinate,
-        size)`` of the data axis (size must divide the batch)."""
+        size)`` of the data axis (size must divide the batch);
+        ``num_workers`` 0 loads inline, more loads on that many threads
+        behind a producer thread, ``prefetch`` batches ahead."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.num_workers = max(0, int(num_workers))
+        self.prefetch = prefetch
         self.shard = tuple(shard)
         if batch_size % self.shard[1]:
             raise ValueError(f"batch_size {batch_size} is the global batch; "
@@ -88,20 +103,61 @@ class DataLoader:
         per = self.batch_size // size
         return [idx[b * per:(b + 1) * per] for b in range(len(self))]
 
+    def _load(self, batch, mapfn):
+        return collate(list(mapfn(lambda i: self.dataset[int(i)], batch)))
+
     def __iter__(self):
-        for batch in self.indices():
-            yield collate([self.dataset[int(i)] for i in batch])
+        if self.num_workers == 0:
+            for batch in self.indices():
+                yield self._load(batch, map)
+            return
+        q = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item):
+            """Put unless the consumer has stopped; False once it has."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for batch in self.indices():
+                        if not put(self._load(batch, pool.map)):
+                            return
+            except BaseException as e:  # noqa: BLE001 - raised by the consumer
+                put(e)
+            else:
+                put(None)
+
+        threading.Thread(target=producer, daemon=True).start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    return
+                if isinstance(batch, BaseException):
+                    raise batch
+                yield batch
+        finally:
+            stop.set()
 
 
 def create_dataloader(dataset, dataset_opt, phase, mesh=None):
-    """The train loader (the config's global batch size and shuffle,
-    drop_last, this rank's data shard on a mesh) or the val loader (batch
-    1, unshuffled, unsharded)."""
+    """The train loader (the config's global batch size, shuffle and
+    ``num_workers``, drop_last, this rank's data shard on a mesh) or the val
+    loader (batch 1, unshuffled, unsharded, one worker)."""
     if phase == "train":
         shard = (0, 1) if mesh is None else (mesh.data.rank, mesh.data.size)
         return DataLoader(dataset, batch_size=dataset_opt["batch_size"],
                           shuffle=bool(dataset_opt["use_shuffle"]),
-                          drop_last=True, shard=shard)
+                          drop_last=True, shard=shard,
+                          num_workers=dataset_opt.get("num_workers", 0) or 0)
     if phase == "val":
-        return DataLoader(dataset, batch_size=1, shuffle=False)
+        return DataLoader(dataset, batch_size=1, shuffle=False, num_workers=1)
     raise NotImplementedError(f"Dataloader [{phase}] is not found.")

@@ -13,19 +13,20 @@ decoder is not used):
   [-1, 1], and a RAM cache of decoded uint8 images (``cache``; on by default
   when the dataset fits 512 MB).
 
-Pillow (and lmdb) are imported where images are opened, so the module
-imports on a machine without them.
+Images decode through Pillow, else cv2, else the port's PNG codec
+(``utils/metrics.py`` ``load_img``), so PNG datasets, directories or LMDB,
+load on a machine with neither (the card's). lmdb is imported where the
+store is opened; ``data/fake_lmdb.py`` can stand in for it through
+``sys.modules["lmdb"]``.
 """
 
 from __future__ import annotations
 
 import os
 import random
-from io import BytesIO
-
-import numpy as np
 
 from sr3_tpu_torch.data.transforms import transform_augment
+from sr3_tpu_torch.utils.metrics import load_img
 
 IMG_EXTENSIONS = (
     ".jpg", ".JPG", ".jpeg", ".JPEG", ".png", ".PNG",
@@ -101,18 +102,19 @@ class LRHRDataset:
         """uint8 HWC arrays {HR, SR, [LR]} of one sample, via the cache."""
         if self._cache is not None and index in self._cache:
             return self._cache[index]
-        img_hr, img_sr, img_lr = self._open(index)
-        out = {"HR": np.asarray(img_hr.convert("RGB"), dtype=np.uint8),
-               "SR": np.asarray(img_sr.convert("RGB"), dtype=np.uint8)}
+        hr, sr, lr = self._read_lmdb(index) if self.datatype == "lmdb" \
+            else (self.hr_path[index], self.sr_path[index],
+                  self.lr_path[index] if self.need_LR else None)
+        # Pillow first, as the JAX dataset decodes
+        out = {"HR": load_img(hr, first="pil"), "SR": load_img(sr, first="pil")}
         if self.need_LR:
-            out["LR"] = np.asarray(img_lr.convert("RGB"), dtype=np.uint8)
+            out["LR"] = load_img(lr, first="pil")
         if self._cache is not None:
             self._cache[index] = out
         return out
 
     def _read_lmdb(self, index):
-        from PIL import Image
-
+        """The encoded HR, SR and (need_LR) LR images of one sample."""
         with self.env.begin(write=False) as txn:
             def fetch(idx):
                 hr = txn.get(f"hr_{self.r_res}_{str(idx).zfill(5)}".encode())
@@ -125,16 +127,7 @@ class LRHRDataset:
             hr, sr, lr = fetch(index)
             while hr is None or sr is None:  # an invalid index: resample
                 hr, sr, lr = fetch(random.randint(0, self.data_len - 1))
-        return (Image.open(BytesIO(hr)), Image.open(BytesIO(sr)),
-                Image.open(BytesIO(lr)) if self.need_LR else None)
-
-    def _open(self, index):
-        if self.datatype == "lmdb":
-            return self._read_lmdb(index)
-        from PIL import Image
-
-        return (Image.open(self.hr_path[index]), Image.open(self.sr_path[index]),
-                Image.open(self.lr_path[index]) if self.need_LR else None)
+        return hr, sr, lr
 
     def __getitem__(self, index):
         dec = self._decoded(index)

@@ -13,9 +13,10 @@ bit: per output pixel a window of input pixels around the center
 downscaling, weights normalised by their sum, then rounded to 22-bit
 fixed point (half away from zero); each pass sums integer products plus
 the rounding term ``1 << 21`` and clips to 0..255, the horizontal pass
-first. Arrays are uint8 HWC. Pillow is needed only to decode and encode
-files (``prepare``, the CLI), and it is imported there, so the cascade
-(``training/cascade.py``) resizes without it.
+first. Arrays are uint8 HWC. Files are decoded and encoded through
+``utils/metrics.py`` (Pillow, else cv2, else the port's PNG codec), so
+``prepare`` runs on a machine without Pillow for PNG sources, and the
+cascade (``training/cascade.py``) resizes without it.
 
 Usage:
   python -m sr3_tpu_torch.data.prepare --path <src> --out <dst>
@@ -32,6 +33,8 @@ import os
 from glob import glob
 
 import numpy as np
+
+from sr3_tpu_torch.utils.metrics import encode_png, load_img, save_img
 
 # Pillow's filter codes (Image.Resampling)
 LANCZOS, BILINEAR, BICUBIC = 1, 2, 3
@@ -159,17 +162,13 @@ def resize_multiple(img, sizes=(16, 128), resample=BICUBIC):
 
 def _process_one(file, sizes, resample):
     """Key each triplet by the source filename stem."""
-    from PIL import Image
-
-    img = np.asarray(Image.open(file).convert("RGB"))
+    img = load_img(file, first="pil")
     stem = os.path.splitext(os.path.basename(file))[0]
     return stem, resize_multiple(img, sizes=sizes, resample=resample)
 
 
 def prepare(img_path, out_path, n_worker=1, sizes=(16, 128),
             resample=BICUBIC, lmdb_save=False):
-    from PIL import Image
-
     files = sorted(
         f for ext in ("*.jpg", "*.jpeg", "*.png", "*.bmp", "*.ppm")
         for f in glob(os.path.join(img_path, "**", ext), recursive=True)
@@ -196,23 +195,18 @@ def prepare(img_path, out_path, n_worker=1, sizes=(16, 128),
         results = [worker(f) for f in files]
 
     total = 0
-    for stem, arrays in sorted(results, key=lambda r: r[0]):
-        lr_img, hr_img, sr_img = (Image.fromarray(a) for a in arrays)
+    for stem, (lr_img, hr_img, sr_img) in sorted(results, key=lambda r: r[0]):
         key = stem.zfill(5)
         if env is None:
-            lr_img.save(f"{out_path}/lr_{l}/{key}.png")
-            hr_img.save(f"{out_path}/hr_{r}/{key}.png")
-            sr_img.save(f"{out_path}/sr_{l}_{r}/{key}.png")
+            save_img(lr_img, f"{out_path}/lr_{l}/{key}.png")
+            save_img(hr_img, f"{out_path}/hr_{r}/{key}.png")
+            save_img(sr_img, f"{out_path}/sr_{l}_{r}/{key}.png")
         else:
-            from io import BytesIO
-
             with env.begin(write=True) as txn:
                 for tag, im in ((f"lr_{l}_{key}", lr_img),
                                 (f"hr_{r}_{key}", hr_img),
                                 (f"sr_{l}_{r}_{key}", sr_img)):
-                    buf = BytesIO()
-                    im.save(buf, format="PNG")
-                    txn.put(tag.encode(), buf.getvalue())
+                    txn.put(tag.encode(), encode_png(im))
         total += 1
         if env is not None:
             with env.begin(write=True) as txn:

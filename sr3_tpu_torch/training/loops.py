@@ -7,7 +7,9 @@ non-finite-loss guard (``train.nan_guard``: raise, warn or off) and a
 checkpoint at the next step boundary after SIGTERM. With
 ``train.steps_per_dispatch`` K > 1 the loop gathers K batches and runs their
 steps one after another before the cadences fire, as the JAX package's
-fused K-step dispatch does. With ``datasets.train.device_data`` the train
+fused K-step dispatch does. Host batches reach the trainer through
+``data/prefetch.py``'s ``device_prefetch``, two batches ahead of the step.
+With ``datasets.train.device_data`` the train
 set is held on the device (``Trainer.load_device_dataset``) and each call of
 ``optimize_parameters_resident`` runs K steps on batches drawn there; no
 host loader runs in the loop.
@@ -18,6 +20,8 @@ from __future__ import annotations
 import logging
 import math
 import signal
+
+from sr3_tpu_torch.data.prefetch import device_prefetch
 
 logger = logging.getLogger("base")
 
@@ -129,11 +133,13 @@ def train_loop(trainer, train_loader, opt, on_validate, tb_logger=None,
         return True
 
     def epochs():
+        """The endless batch stream, each batch tagged with its epoch before
+        the prefetch, so the tag stays exact under its lookahead."""
         epoch = current_epoch
         while True:
             epoch += 1
             for b in train_loader:
-                yield epoch, b
+                yield {**b, "_epoch": epoch}
 
     try:
         if device_data:
@@ -152,9 +158,10 @@ def train_loop(trainer, train_loader, opt, on_validate, tb_logger=None,
             logger.info("End of training.")
             return
         chunk = []
-        for epoch, train_data in epochs():
+        for train_data in device_prefetch(epochs(), trainer.device):
             if current_step >= n_iter:
                 break
+            epoch = train_data.pop("_epoch")
             if wandb_logger and epoch > current_epoch > 0:
                 wandb_logger.log_metrics({"epoch": current_epoch})
             current_epoch = epoch

@@ -62,6 +62,7 @@ from sr3_tpu_torch.parallel.mesh import (barrier, data_mean, data_slice,
                                          is_primary)
 from sr3_tpu_torch.training.evaluation import fold_seed
 from sr3_tpu_torch.training.optim import Adam
+from sr3_tpu_torch.utils.profiler import StepTimer
 from sr3_tpu_torch.utils.runtime import DTYPES, resolve_device
 from sr3_tpu_torch.utils.torch_compat import strip_reference_keys
 
@@ -152,6 +153,8 @@ class Trainer:
         self.log_dict = {}
         self.data = None
         self._dev_data = None
+        self._resident_batch = None
+        self.timer = StepTimer()
         self.load_network()
 
     def set_new_noise_schedule(self, schedule_opt, schedule_phase="train"):
@@ -161,12 +164,16 @@ class Trainer:
             if key not in self.schedules:
                 self.schedules[key] = make_schedule(schedule_opt, self.device)
             self.sched = self.schedules[key]
+            # validation or sampling ran in between: keep its wall time out
+            # of the train step's EMA
+            self.timer._last = None
 
     # ------------------------------------------------------------ training
 
     def feed_data(self, data):
         """Host batch (numpy NHWC arrays) -> NCHW float32 tensors in
-        channels_last memory on the device; other entries pass through."""
+        channels_last memory on the device; tensors already there (from
+        ``data/prefetch.py``) and other entries pass through."""
         self.data = {
             k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             .permute(0, 3, 1, 2).to(self.device, non_blocking=True)
@@ -180,6 +187,7 @@ class Trainer:
         line reads it."""
         keys = ("HR", "SR") if self.conditional else ("HR",)
         self._train_step({k: self.data[k] for k in keys}, self.generator)
+        self.timer.tick()
 
     def _train_step(self, batch, generator):
         self.netG.train()
@@ -310,6 +318,8 @@ class Trainer:
                 g.manual_seed(fold_seed(fold_seed(self.seed, self.step),
                                         self.mesh.data.rank))
             self._train_step(batch, g)
+        self._resident_batch = batch_size
+        self.timer.tick(k_steps)
 
     def _update_ema(self):
         """EMA of the parameters after the update: a copy before
@@ -327,8 +337,17 @@ class Trainer:
 
     def get_current_log(self):
         """The log values as floats, each the data-group mean (every rank
-        calls it together)."""
-        return {k: data_mean(v, self.mesh) for k, v in self.log_dict.items()}
+        calls it together), and this rank's step timer: ``step_time_ms``
+        and ``imgs_per_sec`` of the global batch (the fed batch's rows times
+        the data axis, else the resident batch)."""
+        logs = {k: data_mean(v, self.mesh) for k, v in self.log_dict.items()}
+        if self.data is not None:
+            batch = self.data["HR"].shape[0] * (
+                1 if self.mesh is None else self.mesh.data.size)
+        else:
+            batch = self._resident_batch
+        logs.update(self.timer.stats(batch))
+        return logs
 
     @property
     def is_primary(self):

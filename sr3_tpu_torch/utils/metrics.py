@@ -5,13 +5,16 @@ the same numbers:
 
 - ``tensor2img``: clamp [-1, 1] -> [0, 1] -> uint8 HWC; a 4-D input becomes
   a sqrt(n)-wide grid. Inputs are NHWC numpy arrays.
-- ``save_img`` / ``load_img``: RGB uint8 HWC to and from an image file.
+- ``save_img`` / ``load_img`` / ``encode_png``: RGB uint8 HWC to and from
+  an image file (or encoded bytes), through cv2 and Pillow, else the
+  port's PNG codec (``utils/png.py``) for PNG data; anything else without
+  cv2 or Pillow raises an error naming what is missing.
 - PSNR on [0, 255] in float64.
 - SSIM with the MATLAB-convention 11x11 Gaussian window, sigma 1.5, 'valid'
   crop; through cv2 when it is installed, else scipy.
 
 cv2 and Pillow are imported where they are used, never at module level: a
-machine may have neither.
+machine may have neither (the card's machine has neither).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from sr3_tpu_torch.utils import png
 
 
 def _cv2():
@@ -28,6 +33,15 @@ def _cv2():
     except ImportError:
         return None
     return cv2
+
+
+def _pil_image():
+    """Pillow's Image module, or None when it is not installed."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
 
 
 def make_grid(imgs: np.ndarray, nrow: int, padding: int = 2) -> np.ndarray:
@@ -63,26 +77,55 @@ def tensor2img(tensor, out_type=np.uint8, min_max=(-1, 1)):
 
 
 def save_img(img, img_path):
-    """RGB uint8 HWC -> image file (cv2, else Pillow)."""
+    """RGB uint8 HWC -> image file (cv2, else Pillow, else the port's PNG
+    codec for a .png path)."""
     cv2 = _cv2()
     if cv2 is not None:
         cv2.imwrite(img_path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
-    else:
-        from PIL import Image
-
+        return
+    Image = _pil_image()
+    if Image is not None:
         Image.fromarray(img).save(img_path)
+        return
+    if not img_path.lower().endswith(".png"):
+        raise ValueError(f"cannot write {img_path}: without cv2 or Pillow "
+                         "the port writes PNG only")
+    with open(img_path, "wb") as f:
+        f.write(png.encode(img))
 
 
-def load_img(path):
-    """Image file -> RGB uint8 HWC (cv2, else Pillow)."""
-    cv2 = _cv2()
-    if cv2 is not None:
-        return cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR),
-                            cv2.COLOR_BGR2RGB)
-    from PIL import Image
+def encode_png(img):
+    """RGB uint8 HWC -> PNG bytes (Pillow, as the JAX package's prepare
+    writes its LMDB, else the port's codec)."""
+    Image = _pil_image()
+    if Image is None:
+        return png.encode(img)
+    from io import BytesIO
 
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"))
+    buf = BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def load_img(src, first="cv2"):
+    """Image file path or encoded bytes -> RGB uint8 HWC, through cv2 and
+    Pillow in the order ``first`` ("cv2" or "pil") names, the first one
+    installed; without either, PNG data through the port's codec."""
+    for lib in (("cv2", "pil") if first == "cv2" else ("pil", "cv2")):
+        if lib == "cv2" and (cv2 := _cv2()) is not None:
+            if isinstance(src, (bytes, bytearray)):
+                bgr = cv2.imdecode(np.frombuffer(src, np.uint8),
+                                   cv2.IMREAD_COLOR)
+            else:
+                bgr = cv2.imread(src, cv2.IMREAD_COLOR)
+            return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+        if lib == "pil" and (Image := _pil_image()) is not None:
+            from io import BytesIO
+
+            f = BytesIO(src) if isinstance(src, (bytes, bytearray)) else src
+            with Image.open(f) as img:
+                return np.asarray(img.convert("RGB"))
+    return png.to_rgb(png.decode(src))
 
 
 def calculate_psnr(img1, img2):

@@ -163,7 +163,11 @@ def test_port_imports_no_jax(tmp_path):
                  "sr3_tpu_torch.training.optim",
                  "sr3_tpu_torch.parallel.mesh",
                  "sr3_tpu_torch.parallel.spatial",
-                 "sr3_tpu_torch.parallel.sharding_rules"}} <= set(names)
+                 "sr3_tpu_torch.parallel.sharding_rules",
+                 "sr3_tpu_torch.utils.profiler", "sr3_tpu_torch.utils.fid",
+                 "sr3_tpu_torch.utils.png", "sr3_tpu_torch.data.prefetch",
+                 "sr3_tpu_torch.data.fake_lmdb",
+                 "sr3_tpu_torch.fid_eval"}} <= set(names)
         for name in names:
             importlib.import_module(name)
         import chip_smoke

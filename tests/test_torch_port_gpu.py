@@ -411,3 +411,62 @@ def test_cuda_wrappers_raise_on_other_layouts(gen):
     q = torch.ones(1, 16, 600, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         attention.attention(q, q, q, 1.0)
+
+
+def test_device_prefetch_on_the_card(gen):
+    """device_prefetch's CUDA route (pinned memory, a side stream, a wait
+    event): each batch lands on the card in feed_data's layout, in order,
+    with its other values, equal to the host arrays."""
+    import numpy as np
+
+    from sr3_tpu_torch.data.prefetch import device_prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [{"HR": rng.standard_normal((4, 32, 24, 3)).astype(np.float32),
+                "_epoch": i // 2} for i in range(6)]
+    out = list(device_prefetch(iter(batches), "cuda", size=2))
+    assert [b["_epoch"] for b in out] == [b["_epoch"] for b in batches]
+    for b, src in zip(out, batches):
+        x = b["HR"]
+        assert x.is_cuda and x.dtype == torch.float32
+        assert x.is_contiguous(memory_format=CL) and x.shape == (4, 3, 32, 24)
+        # read on the consumer's stream, as the trainer does
+        assert np.array_equal((x * 1).permute(0, 2, 3, 1).cpu().numpy(),
+                              src["HR"])
+
+
+def test_device_prefetch_pins_off_the_consumer_thread(gen, monkeypatch):
+    """The pinning runs on device_prefetch's own thread, the batches are
+    pulled on the consumer's; an error while pinning is raised in the
+    consumer; closing the generator early ends the thread."""
+    import threading
+
+    import numpy as np
+
+    from sr3_tpu_torch.data import prefetch
+
+    pinned_on, pulled_on = set(), set()
+    pin = prefetch._pinned
+
+    def recorded(batch):
+        pinned_on.add(threading.get_ident())
+        return pin(batch)
+
+    monkeypatch.setattr(prefetch, "_pinned", recorded)
+
+    def source(n, bad=None):
+        for i in range(n):
+            pulled_on.add(threading.get_ident())
+            x = np.full((2, 8, 8, 3), i, np.float32)
+            yield {"HR": np.full(x.shape, "?", object) if i == bad else x}
+
+    before = threading.active_count()
+    it = prefetch.device_prefetch(source(6), "cuda", size=2)
+    assert float(next(it)["HR"].sum()) == 0
+    it.close()
+    assert threading.active_count() == before
+    assert pulled_on == {threading.get_ident()}
+    assert pinned_on and threading.get_ident() not in pinned_on
+    with pytest.raises(ValueError):
+        list(prefetch.device_prefetch(source(4, bad=2), "cuda", size=1))
+    assert threading.active_count() == before

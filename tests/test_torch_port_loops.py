@@ -14,6 +14,8 @@ from sr3_tpu_torch.training.loops import train_loop
 
 
 class FakeTrainer:
+    device = "cpu"  # where the loop's device_prefetch puts the batches
+
     def __init__(self, loss=0.5):
         self.begin_step = 0
         self.begin_epoch = 0

@@ -204,3 +204,31 @@ def test_two_packages_train_and_score_alike(monkeypatch, mu_dtype):
     assert np.isfinite(psnr_p) and abs(psnr_p - psnr_j) <= 1e-3, (psnr_p,
                                                                    psnr_j)
     assert abs(ssim_p - ssim_j) <= 1e-4, (ssim_p, ssim_j)
+
+
+def test_the_training_logs_have_the_jax_trainers_keys(monkeypatch):
+    """After two steps each trainer's get_current_log has the same keys:
+    the loss and its step timer's step_time_ms and imgs_per_sec. The JAX
+    trainer's compiled step is swapped for one that returns its state and
+    a loss (the keys come from the trainer's log and timer, not from the
+    step)."""
+    jt, _, _ = _jax_side()
+    monkeypatch.setattr(jt, "_train_step_fn",
+                        lambda state, sched, batch, rng: (state,
+                                                          jnp.float32(0.5)))
+    monkeypatch.setattr(jt, "_train_base_rng", jax.random.PRNGKey(0),
+                        raising=False)
+    monkeypatch.setattr(jt, "data", None)
+    port = create_model(_opt("float32"), device="cpu")
+    port.set_new_noise_schedule(port.opt["model"]["beta_schedule"]["train"])
+    batches, _ = _batches()
+    for data in batches[:2]:
+        jt.feed_data(data)
+        jt.optimize_parameters()
+        port.feed_data(data)
+        port.optimize_parameters()
+    want, got = jt.get_current_log(), port.get_current_log()
+    assert sorted(got) == sorted(want) == ["imgs_per_sec", "l_pix",
+                                           "step_time_ms"]
+    assert all(np.isfinite(v) and v > 0 for v in got.values())
+    assert got["imgs_per_sec"] == pytest.approx(2e3 / got["step_time_ms"])

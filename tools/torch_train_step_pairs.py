@@ -16,6 +16,14 @@ host-bound, and processes spread more than a small change moves it: the
 summary gives each run's median and each pair's difference, B - A.
 
   python3 tools/torch_train_step_pairs.py --one TREE   # one run, in-process
+
+With ``--loop`` each run times the tree's ``train_loop`` instead: 3 warm-up
+steps, then 3 windows of ``--steps`` steps over 8 seeded synthetic host
+batches (a new host batch each step, as a loader feeds them; no log line,
+validation or checkpoint), the wall time of each window after a
+synchronize; the run's median is that of the windows' ms per step. It
+holds the loop's batch path (the host copy, or ``device_prefetch`` where
+the tree has it) against another tree's.
 """
 
 import argparse
@@ -23,6 +31,44 @@ import os
 import re
 import subprocess
 import sys
+
+
+def one_loop(tree, steps):
+    """Time ``train_loop`` of ``tree`` over host batches (``--loop``)."""
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from sr3_tpu_torch.training.loops import train_loop
+
+    if not os.path.abspath(cs.__file__).startswith(root):
+        raise RuntimeError(f"imported {cs.__file__}, not the tree's")
+    cs.device_phase(torch)
+    trainer, opt = cs._train_trainer(torch, cs.CONFIG, 1)
+    opt["train"]["print_freq"] = 10 ** 9
+    b = opt["datasets"]["train"]["batch_size"]
+    batches = cs._synthetic_batches(np, 8, b, seed=7)
+
+    def run(n):
+        trainer.begin_step = trainer.step
+        opt["train"]["n_iter"] = trainer.step + n
+        train_loop(trainer, batches, opt, lambda s, e: None)
+
+    run(3)
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0) / steps)
+    print(f"RESULT tree={tree} batch={b} loop median_ms={np.median(ms):.3f} "
+          f"min_ms={min(ms):.3f} max_ms={max(ms):.3f}", flush=True)
 
 
 def one(tree, steps):
@@ -49,7 +95,7 @@ def one(tree, steps):
     cs._profile_steps(torch, trainer.optimize_parameters, 2)
 
 
-def pairs(trees, n, steps, timeout):
+def pairs(trees, n, steps, timeout, loop=False):
     import statistics
 
     medians = {t: [] for t in trees}
@@ -60,7 +106,7 @@ def pairs(trees, n, steps, timeout):
         for tree in order:
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--one", tree,
-                 "--steps", str(steps)],
+                 "--steps", str(steps)] + (["--loop"] if loop else []),
                 capture_output=True, text=True, timeout=timeout)
             out = proc.stdout + proc.stderr
             m = re.search(r"RESULT .*median_ms=([\d.]+)", out)
@@ -88,11 +134,13 @@ def main():
     p.add_argument("--pairs", type=int, default=4)
     p.add_argument("--steps", type=int, default=12)
     p.add_argument("--timeout", type=float, default=300)
+    p.add_argument("--loop", action="store_true",
+                   help="time train_loop over host batches")
     a = p.parse_args()
     if a.one:
-        one(a.one, a.steps)
+        (one_loop if a.loop else one)(a.one, a.steps)
     elif len(a.trees) == 2:
-        pairs(a.trees, a.pairs, a.steps, a.timeout)
+        pairs(a.trees, a.pairs, a.steps, a.timeout, a.loop)
     else:
         p.error("give two trees, or --one TREE")
 
