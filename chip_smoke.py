@@ -152,7 +152,28 @@ Adam first moment and the device-resident dataset:
  29. 128->1024 kernel timing: K1 at 8x64x1024^2->64 and 8x128x1024^2->64,
      K3 at 2x64x1024^2, K4-K6 at (2 | 8, 1024, 512) and at the 16->128
      serving attention (8, 256 | 64, 512), as phase 17.
-After phase 29 the bf16 K1 tiles, and K2's (dtype, cluster size,
+The last drivers and configs (after phase 29):
+ 39. 64->512 attention-free (configs/sr_sr3_64_512.json: 63.7M parameters,
+     attention only in the mid block, one res block, 16 groups, remat,
+     dropout 0.2): its K1 sites those of phase 3's 64->512 list, its K2 and
+     K3 sites among phases 3's and 10's; the float32 batch-1 forward
+     against the CPU (FORWARD_TOL); TRAIN_STEPS_512 bf16 remat train steps
+     at batch 2 through train_loop (K3 and K4-K6 as often as its sites
+     say; K2's launches printed); run_sr of 2 images at T=10; the median
+     ms of a batch-8 512^2 p_sample_step, its busy share, peak memory and
+     MFU from the counted FLOPs (utils/flops.py);
+ 40. sampler tool: python -m sr3_tpu_torch.sampler_eval (in-process) on a
+     random-weight .pth of the 16->128 model saved in the phase, two
+     fixture images, T=20, ddpm:20 ddpm:20 ddim:5, 2 reps: finite score
+     grids, the repeated sampler's scores equal to the first's and its
+     deltas exactly 0, every forward kernel launched;
+ 41. bench: python -m sr3_tpu_torch.bench in a subprocess at
+     BENCH_STEPS=200: the five lines in order, finite positive values,
+     0 < mfu <= 1 on the train and headline lines, the card's name on each.
+Every timed UNet step, train step and strided chain (phases 6, 9, 15,
+16, 18, 21, 24, 25, 39) also prints its MFU: the FLOPs utils/flops.py
+counts for it over its median ms, against 989 TFLOP/s.
+After phase 41 the bf16 K1 tiles, and K2's (dtype, cluster size,
 residency), launched since phase 3 (the main paths and the timing) must
 all be ones that phase 3 checked.
 The JAX package's host modules in the port (phase 35 runs right after
@@ -231,6 +252,7 @@ and prints no result.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -1139,6 +1161,7 @@ def train_timing_phase(torch, trainer):
           f"ms/step over {TIME_STEPS} steps (min {min(ms):.3f}, max "
           f"{max(ms):.3f}); {b / (step_ms / 1000):.3f} train img/s; peak "
           f"device memory {peak:.2f} GiB", flush=True)
+    _mfu(CONFIG, b, step_ms, train=True)
 
     g = torch.Generator(device="cuda").manual_seed(8)
     times = {}
@@ -1175,6 +1198,30 @@ def train_timing_phase(torch, trainer):
     return step_ms, times
 
 
+@functools.lru_cache(maxsize=None)
+def _counted_flops(config, train):
+    """utils/flops.py's count for one image of ``config``'s model: a UNet
+    forward, or with ``train`` p_losses + backward."""
+    from sr3_tpu_torch.utils.flops import forward_flops, train_step_flops
+
+    return (train_step_flops if train else forward_flops)(
+        _load_opt(config=config))
+
+
+def _mfu(config, batch, ms, train=False, forwards=1):
+    """Print and return the MFU of a timed path: the counted FLOPs of
+    ``forwards`` UNet forwards (``train``: p_losses + backward) of
+    ``config``'s model for ``batch`` images over ``ms``, against
+    PEAK_BF16_FLOPS."""
+    flops = _counted_flops(config, train) * batch * forwards
+    mfu = flops / (ms / 1000) / PEAK_BF16_FLOPS
+    print(f"  MFU {100 * mfu:.2f}%: {flops / 1e12:.3f} TFLOP counted "
+          f"({os.path.basename(config)}, {'train step' if train else 'forward'}"
+          f" x {forwards} x batch {batch}) in {ms:.3f} ms, of "
+          f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s", flush=True)
+    return mfu
+
+
 def _time_ms(torch, fn, n=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -1209,6 +1256,7 @@ def timing_phase(torch, trainer):
     print(f"  UNet step (p_sample_step) B={BATCH_TIME} {net.dtype}: "
           f"{step_ms:.3f} ms/step (mean of 20 steps of the T=2000 chain); "
           f"2000-step throughput extrapolated {ips:.4f} img/s", flush=True)
+    _mfu(CONFIG, BATCH_TIME, step_ms)
     with torch.inference_mode():  # device launches and busy share
         _profile_steps(torch, lambda: diff.p_sample_step(
             net, sched, img, next(steps), cond, generator=g), 2)
@@ -1442,8 +1490,15 @@ def training_512_phase(torch):
     loader = _synthetic_batches(np, TRAIN_STEPS_512, b, seed=12, lr_size=64)
     launches = _train_loop_checked(torch, trainer, opt, loader,
                                    ONE_DEVICE_KERNELS)
-    # remat runs every block's forward twice (once more in the backward)
-    steps = TRAIN_STEPS_512
+    _remat_launches_checked(launches, sites, n_attn, TRAIN_STEPS_512)
+    return trainer, launches
+
+
+def _remat_launches_checked(launches, sites, n_attn, steps):
+    """Fail unless ``steps`` remat train steps launched K3 and K4-K6 as
+    often as the model's ``sites`` statistics-route GroupNorms and
+    ``n_attn`` attention calls a forward say: remat runs every block's
+    forward twice (once more in the backward)."""
     expect = {"gn_stats": 2 * sites * steps,
               "flash_attention_fwd": 2 * n_attn * steps,
               "flash_attention_bwd_dkv": n_attn * steps,
@@ -1453,7 +1508,6 @@ def training_512_phase(torch):
     print(f"  expected launches {expect}", flush=True)
     if wrong:
         raise AssertionError(f"launches (got, expected): {wrong}")
-    return trainer, launches
 
 
 @phase("64->512 training gradients")
@@ -1596,6 +1650,7 @@ def serving_512_phase(torch):
               f"{min(ms):.3f}, max {max(ms):.3f}); 2000-step throughput "
               f"extrapolated {bt / (2000 * step_ms / 1000):.5f} img/s",
               flush=True)
+        _mfu(CONFIG_512, bt, step_ms)
         _profile_steps(torch, step, PROFILE_STEPS_512)
     return launches
 
@@ -1637,7 +1692,8 @@ def _profile_steps(torch, step, n, unet_steps=1):
     """A torch.profiler window over n calls of ``step``: wall and device
     busy ms per step (union of device intervals) and device time by kernel,
     printed; with ``unet_steps`` (the UNet forwards of one call, as in a
-    whole chain) also the device ops per UNet forward."""
+    whole chain) also the device ops per UNet forward. Returns (wall, busy)
+    ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1671,6 +1727,7 @@ def _profile_steps(torch, step, n, unet_steps=1):
     print(f"  GroupNorm kernels (K1's statistics launch, K2): "
           f"{sum(t for t, _ in gn) / 1000 / n:.3f} ms/step in "
           f"{sum(k for _, k in gn) / n:.0f} launches/step", flush=True)
+    return wall, busy
 
 
 @phase("64->512 training timing")
@@ -1691,7 +1748,7 @@ def train_timing_512_phase(torch, trainer):
           f"{step_ms:.3f} ms/step over {TIME_STEPS_512} steps (min "
           f"{min(ms):.3f}, max {max(ms):.3f}); {b / (step_ms / 1000):.4f} "
           f"train img/s; peak device memory {peak:.2f} GiB", flush=True)
-
+    _mfu(CONFIG_512, b, step_ms, train=True)
     _profile_steps(torch, trainer.optimize_parameters, PROFILE_STEPS_512)
     return step_ms
 
@@ -2217,6 +2274,7 @@ def uncond_phase(torch):
                   f"throughput extrapolated "
                   f"{BATCH_TIME / (2000 * step_ms / 1000):.4f} img/s",
                   flush=True)
+            _mfu(config, BATCH_TIME, step_ms)
             _profile_steps(torch, step, 2)
         del trainer, ev, net, img
         out[key + "_train"] = _train_new(torch, config, 26)
@@ -2270,6 +2328,7 @@ def strided_phase(torch, trainer):
                   f"{1000 * chain_s:.1f} ms of 3 (min {1000 * min(times):.1f}, "
                   f"max {1000 * max(times):.1f}), {BATCH_TIME / chain_s:.3f} "
                   f"images/s", flush=True)
+            _mfu(CONFIG, BATCH_TIME, 1000 * chain_s, forwards=steps)
             with torch.inference_mode():
                 _profile_steps(torch, run, 1, unet_steps=steps)
             if forwards != steps or not finite or len(outs) != BATCH_TIME:
@@ -2436,14 +2495,14 @@ def model_1024_phase(torch):
     torch.cuda.empty_cache()
 
 
-def _items_1024(torch, n, seed):
-    """n seeded 128->1024 val items: SR the bicubic upsampling of a random
-    128^2 image, HWC float32 in [-1, 1]."""
+def _upsampled_items(torch, n, seed, lr=128, hr=1024):
+    """n seeded lr->hr val items: SR the bicubic upsampling of a random
+    lr^2 image, HWC float32 in [-1, 1]."""
     import torch.nn.functional as F
 
     g = torch.Generator().manual_seed(seed)
-    lr = torch.rand(n, 3, 128, 128, generator=g) * 2 - 1
-    sr = F.interpolate(lr, size=(1024, 1024), mode="bicubic",
+    x = torch.rand(n, 3, lr, lr, generator=g) * 2 - 1
+    sr = F.interpolate(x, size=(hr, hr), mode="bicubic",
                        align_corners=False).clamp(-1, 1)
     return [{"SR": sr[i].permute(1, 2, 0).numpy(), "Index": i}
             for i in range(n)]
@@ -2461,7 +2520,7 @@ def serving_1024_phase(torch):
 
     trainer = _serving_trainer(CONFIG_1024)
     bt = trainer.opt["datasets"]["val"]["batch_size"]
-    items = _items_1024(torch, bt, seed=30)
+    items = _upsampled_items(torch, bt, seed=30)
     ev = GroupedEvaluator(trainer, group_size=bt)
     for c in counters():
         c.n = 0
@@ -2501,6 +2560,7 @@ def serving_1024_phase(torch):
               f"{min(ms):.3f}, max {max(ms):.3f}); 2000-step throughput "
               f"extrapolated {bt / (2000 * step_ms / 1000):.6f} img/s; peak "
               f"device memory {_peak_gib(torch):.2f} GiB", flush=True)
+        _mfu(CONFIG_1024, bt, step_ms)
         _profile_steps(torch, step, 1)
     del trainer, ev, net, cond, img
     torch.cuda.empty_cache()
@@ -2536,17 +2596,8 @@ def training_1024_phase(torch):
     torch.cuda.reset_peak_memory_stats()
     launches = _train_loop_checked(torch, trainer, opt, loader,
                                    ONE_DEVICE_KERNELS)
-    steps = TRAIN_STEPS_1024
-    expect = {"gn_stats": 2 * sites * steps,
-              "flash_attention_fwd": 2 * n_attn * steps,
-              "flash_attention_bwd_dkv": n_attn * steps,
-              "flash_attention_bwd_dq": n_attn * steps}
-    wrong = {k: (launches[k], v) for k, v in expect.items()
-             if launches[k] != v}
-    print(f"  expected launches {expect}; peak device memory "
-          f"{_peak_gib(torch):.2f} GiB", flush=True)
-    if wrong:
-        raise AssertionError(f"launches (got, expected): {wrong}")
+    print(f"  peak device memory {_peak_gib(torch):.2f} GiB", flush=True)
+    _remat_launches_checked(launches, sites, n_attn, TRAIN_STEPS_1024)
     trainer.feed_data(_synthetic_batches(np, 1, b, seed=33, lr_size=128)[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2556,6 +2607,7 @@ def training_1024_phase(torch):
           f"{step_ms:.3f} ms/step over {len(ms)} steps (min {min(ms):.3f}, "
           f"max {max(ms):.3f}); {b / (step_ms / 1000):.4f} train img/s; peak "
           f"device memory {_peak_gib(torch):.2f} GiB", flush=True)
+    _mfu(CONFIG_1024, b, step_ms, train=True)
     _profile_steps(torch, trainer.optimize_parameters, 1)
     del trainer, net
     torch.cuda.empty_cache()
@@ -3305,6 +3357,211 @@ def fid_phase(torch, results):
         raise AssertionError("--extractor inception ran without torchvision")
 
 
+# ------------------------------------ the last drivers and configs (39-41)
+# configs/sr_sr3_64_512.json: the reference's own 512^2 config (63.7M
+# parameters, five levels, one res block, 16 groups, attention only in the
+# mid block, remat, dropout 0.2); its K1 sites are the attention model's
+# (K1_SHAPES_512), its K2 and K3 sites among K2_SITES_512 and K3_SHAPES
+CONFIG_512_NOATTN = os.path.join(ROOT, "configs", "sr_sr3_64_512.json")
+# sampler tool phase: the 16->128 model, random weights, on the fixture's
+# val images at T=20: the first sampler listed twice
+SAMPLER_SPECS = ["ddpm:20", "ddpm:20", "ddim:5"]
+BENCH_LINES = ["train_step_throughput", "train_step_loader_throughput",
+               "sampling_ddim50_eta1_throughput",
+               "sampling_dpmpp50_throughput", "sampling_2000step_throughput"]
+
+
+@phase("64->512 attention-free")
+def noattn_512_phase(torch):
+    """configs/sr_sr3_64_512.json at full width: its K1 / K2 / K3 sites
+    among those phases 3 and 10 check; the float32 batch-1 forward on the
+    card against the CPU (FORWARD_TOL); TRAIN_STEPS_512 bf16 remat train
+    steps at batch 2 through train_loop (K3 and K4-K6 exactly as often as
+    the model's sites say); run_sr of 2 images at T=10; the median ms of a
+    batch-8 512^2 p_sample_step, its busy share, peak memory and MFU from
+    the counted FLOPs. Returns the launches of the train and serving
+    runs."""
+    import numpy as np
+
+    from sr3_tpu_torch.models.schedule import make_schedule
+    from sr3_tpu_torch.models.unet import SelfAttention
+    from sr3_tpu_torch.training.evaluation import GroupedEvaluator
+
+    k1 = sorted(set(k1_sites(torch, CONFIG_512_NOATTN)))
+    k2 = set(k2_sites(torch, CONFIG_512_NOATTN))
+    k3 = set(k3_shapes(torch, CONFIG_512_NOATTN))
+    same = k1 == sorted(K1_SHAPES_512)
+    print(f"  K1 shapes {len(k1)} (sr_sr3_64_512_attn's: {same}); K2 sites "
+          f"{sorted(k2)}; K3 maps {sorted(k3)}", flush=True)
+    if not same or k2 - set(K2_SITES_512) or k3 - set(K3_SHAPES):
+        raise AssertionError("a K1, K2 or K3 site of sr_sr3_64_512 is not "
+                             "among those phases 3 and 10 check")
+
+    net = _forward_vs_cpu(torch, CONFIG_512_NOATTN)
+    n = sum(p.numel() for p in net.parameters())
+    if n != 63_659_203:
+        raise AssertionError(f"expected 63,659,203 parameters, got {n:,d}")
+    del net
+
+    trainer, opt = _train_trainer(torch, CONFIG_512_NOATTN, TRAIN_STEPS_512)
+    b = opt["datasets"]["train"]["batch_size"]
+    net = trainer.netG
+    n_attn = sum(isinstance(m, SelfAttention) for m in net.modules())
+    sites = k3_sites(opt)
+    print(f"  train-phase Trainer: compute {net.dtype}, batch {b}, dropout "
+          f"{opt['model']['unet']['dropout']}, remat {net.remat}, {n_attn} "
+          f"attention call and {sites} statistics-route GroupNorms per "
+          f"forward", flush=True)
+    if net.dtype != torch.bfloat16 or b != 2 or not net.remat:
+        raise AssertionError("sr_sr3_64_512 trains at batch 2, bf16, remat")
+    loader = _synthetic_batches(np, TRAIN_STEPS_512, b, seed=40, lr_size=64)
+    train = _train_loop_checked(torch, trainer, opt, loader,
+                                ONE_DEVICE_KERNELS)
+    print(f"  K2 launches in training {train['group_norm']}", flush=True)
+    _remat_launches_checked(train, sites, n_attn, TRAIN_STEPS_512)
+    del trainer, net
+    torch.cuda.empty_cache()
+
+    trainer = _serving_trainer(CONFIG_512_NOATTN)
+    items = _upsampled_items(torch, 2, seed=41, lr=64, hr=512)
+    ev = GroupedEvaluator(trainer, group_size=2)
+    for c in counters():
+        c.n = 0
+    outs = [o for _, o in ev.run_sr(iter(items))]
+    serving = forward_launches()
+    finite = all(np.isfinite(o).all() for o in outs)
+    print(f"  run_sr {trainer.netG.dtype} B=2, T=10: {len(outs)} images of "
+          f"{outs[0].shape}, finite {finite}; launches {serving}",
+          flush=True)
+    if len(outs) != 2 or outs[0].shape != (512, 512, 3) or not finite:
+        raise AssertionError("sr_sr3_64_512 serving outputs")
+    if min(serving.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {serving}")
+
+    bt = BATCH_TIME
+    sched = make_schedule(trainer.opt["model"]["beta_schedule"]["val"]
+                          | {"n_timestep": 2000}, "cuda")
+    net = trainer._eval_params()
+    gd = torch.Generator(device="cuda").manual_seed(42)
+    cond = torch.rand(bt, 3, 512, 512, device="cuda", generator=gd) * 2 - 1
+    img = torch.randn(bt, 3, 512, 512, device="cuda", generator=gd)
+    t_iter = iter(range(1999, -1, -1))
+    step = lambda: trainer.diffusion.p_sample_step(
+        net, sched, img, next(t_iter), cond, generator=gd)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_each(torch, step, TIME_STEPS_512)
+        step_ms = float(np.median(ms))
+        peak = _peak_gib(torch)
+        wall, busy = _profile_steps(torch, step, PROFILE_STEPS_512)
+    print(f"  UNet step (p_sample_step) B={bt} 512^2 {net.dtype}: median "
+          f"{step_ms:.3f} ms/step over {len(ms)} steps (min {min(ms):.3f}, "
+          f"max {max(ms):.3f}); busy {100 * busy / wall:.1f}%; peak device "
+          f"memory {peak:.2f} GiB; 2000-step throughput extrapolated "
+          f"{bt / (2000 * step_ms / 1000):.5f} img/s", flush=True)
+    mfu = _mfu(CONFIG_512_NOATTN, bt, step_ms)
+    if not 0 < mfu <= 1:
+        raise AssertionError(f"MFU {mfu}")
+    del trainer, ev, net, cond, img
+    torch.cuda.empty_cache()
+    return {"64_512_noattn_train": train, "64_512_noattn_serving": serving}
+
+
+@phase("sampler tool")
+def sampler_eval_phase(torch, workdir):
+    """python -m sr3_tpu_torch.sampler_eval (in-process) on a random-weight
+    .pth of the 16->128 model saved here, the fixture's first two val
+    images, T=20, SAMPLER_SPECS, 2 reps; counters zeroed just before, every
+    forward kernel launched; finite [image][rep] grids, and the repeated
+    sampler's scores equal to the first's, its deltas exactly 0."""
+    import numpy as np
+
+    from sr3_tpu_torch import sampler_eval
+    from sr3_tpu_torch.models.networks import define_G
+
+    opt = _load_opt()
+    opt["datasets"]["val"].update(dataroot=FIXTURES, datatype="img",
+                                  data_len=2)
+    cfg = os.path.join(workdir, "sampler_eval.json")
+    with open(cfg, "w") as f:
+        json.dump(opt, f)
+    prefix = os.path.join(workdir, "I0_E0")
+    net = define_G(opt, device="cpu", seed=5).denoise_fn
+    torch.save(net.state_dict(), prefix + "_gen.pth")
+    out = os.path.join(workdir, "sampler_eval_out.json")
+    for c in counters():
+        c.n = 0
+    rows = sampler_eval.main([
+        "--config", cfg, "--resume", prefix, "--timesteps", "20",
+        "--samplers", *SAMPLER_SPECS, "--eta", "1", "--reps", "2",
+        "--out", out])
+    launches = forward_launches()
+    with open(out) as f:
+        report = json.load(f)
+    first, again = rows[0], rows[1]
+    deltas = {k: v for k, v in again.items() if k.startswith("d_")}
+    print(f"  rows {[r['sampler'] for r in rows]}, avg PSNR "
+          f"{[r['avg_psnr_db'] for r in rows]}, seconds "
+          f"{[r['sample_seconds_total'] for r in rows]}; the repeated "
+          f"sampler's deltas {deltas}; launches {launches}", flush=True)
+    if report["results"] != rows or len(rows) != len(SAMPLER_SPECS):
+        raise AssertionError("the artifact does not hold the rows")
+    for r in rows:
+        grid = np.asarray(r["psnr_db"])
+        if grid.shape != (2, 2) or not np.isfinite(grid).all():
+            raise AssertionError(f"{r['sampler']}: PSNR grid {grid}")
+    if again["psnr_db"] != first["psnr_db"] or \
+            again["ssim"] != first["ssim"] or len(deltas) != 6 or \
+            any(v != 0 for v in deltas.values()):
+        raise AssertionError(f"the repeated sampler differs: {deltas}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+    return launches
+
+
+@phase("bench")
+def bench_phase(torch):
+    """python -m sr3_tpu_torch.bench in a subprocess, default config, with
+    BENCH_STEPS=200: its five lines in the JAX bench's order, every number
+    finite (value, vs_baseline, batch and step times positive), 0 < mfu <=
+    1 on the train and headline lines, the card's name on every line."""
+    import math
+
+    env = dict(os.environ, BENCH_STEPS="200", PYTHONPATH=ROOT)
+    env.pop("SR3_PLATFORM", None)
+    proc = subprocess.run([sys.executable, "-m", "sr3_tpu_torch.bench"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=900)
+    for line in proc.stderr.splitlines():
+        if line.startswith("#"):
+            print("  " + line, flush=True)
+    lines = [json.loads(l) for l in proc.stdout.splitlines()
+             if l.startswith("{")]
+    for m in lines:
+        print("  " + json.dumps(m), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    want = [f"sr_sr3_16_128_{k}" for k in BENCH_LINES]
+    if [m["metric"] for m in lines] != want:
+        raise AssertionError(f"bench lines {[m['metric'] for m in lines]}")
+    name = torch.cuda.get_device_name(0)
+    for m in lines:
+        nums = {k: v for k, v in m.items() if isinstance(v, (int, float))
+                and not isinstance(v, bool)}
+        bad = [k for k, v in nums.items() if not math.isfinite(v) or v < 0
+               or (k in ("value", "vs_baseline", "batch", "step_ms")
+                   and v <= 0)]
+        if bad or m["device"] != name:
+            raise AssertionError(f"{m['metric']}: {bad}, device "
+                                 f"{m['device']}")
+    for m in (lines[0], lines[-1]):
+        if not (m["mfu"] is not None and 0 < m["mfu"] <= 1):
+            raise AssertionError(f"{m['metric']}: mfu {m['mfu']}")
+    return lines
+
+
 # ---------------------------------------------------------------------------
 # The parallel phases (30-33): two ranks started by parallel_phase through
 # torch.distributed.run, each running ``chip_smoke.py --rank DIR
@@ -3980,6 +4237,12 @@ def main():
                                                        f32_state_bytes),
                  "16_128_train_device_data": resident_phase(torch)}
         timings_1024 = kernel_timing_1024_phase(torch)
+        # the reference's attention-free 512^2 config, the sampler tool and
+        # the bench
+        paths.update(noattn_512_phase(torch))
+        paths["16_128_sampler_eval"] = sampler_eval_phase(torch, workdir)
+        torch.cuda.empty_cache()
+        bench_phase(torch)
         k1_tile_phase(checked_tiles)
         k2_cluster_phase(checked_clusters)
         # the parallel paths (two ranks) and K1's halo entry

@@ -504,8 +504,10 @@ class Trainer:
 
     def load_network(self):
         """Resume from the ``path.resume_state`` prefix: its ``_gen.pth``,
-        and in the train phase its ``_opt.pth`` (optimizer, EMA, step and
-        epoch counters) when present."""
+        and its ``_opt.pth`` when present: in the train phase the optimizer,
+        EMA, step and epoch counters; in any phase the EMA weights when EMA
+        is on, so sampling from a resume uses them, as the JAX package
+        restores its EMA parameters in every phase."""
         load_path = (self.opt.get("path") or {}).get("resume_state")
         if not load_path:
             return
@@ -515,13 +517,15 @@ class Trainer:
         tp.load_full_state_dict(self.netG, strip_reference_keys(sd))
         ema = None
         opt_path = os.path.abspath(f"{load_path}_opt.pth")
-        if self.phase == "train" and os.path.exists(opt_path):
+        train = self.phase == "train"
+        if (train or self.use_ema) and os.path.exists(opt_path):
             state = torch.load(opt_path, map_location=self.device,
                                weights_only=True)
-            self.begin_step = self.step = int(state["iter"])
-            self.begin_epoch = int(state["epoch"])
-            if self.optimizer is not None and state.get("optimizer"):
-                self._load_optimizer(state["optimizer"])
+            if train:
+                self.begin_step = self.step = int(state["iter"])
+                self.begin_epoch = int(state["epoch"])
+                if self.optimizer is not None and state.get("optimizer"):
+                    self._load_optimizer(state["optimizer"])
             ema = state.get("ema")
         if self.use_ema:
             if ema is not None:

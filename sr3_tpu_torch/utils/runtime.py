@@ -45,3 +45,20 @@ def resolve_dtype(name=None, device=None):
         return DTYPES[name]
     device = torch.device(device) if device is not None else resolve_device()
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def card_name_and_power():
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, or
+    None where nvidia-smi is missing or fails."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if out.returncode == 0 and lines else None
