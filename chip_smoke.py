@@ -1236,31 +1236,48 @@ def _time_ms(torch, fn, n=20, warmup=3):
     return e0.elapsed_time(e1) / n
 
 
-@phase("timing")
-def timing_phase(torch, trainer):
+def _serving_step(torch, trainer, seed):
+    """A function that runs one p_sample_step of the serving network at
+    batch BATCH_TIME, walking down the T=2000 chain from t = 1999."""
     from sr3_tpu_torch.models.schedule import make_schedule
-    from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
 
     sched = make_schedule(dict(schedule="linear", n_timestep=2000,
                                linear_start=1e-6, linear_end=1e-2), "cuda")
     net = trainer._eval_params()
-    diff = trainer.diffusion
-    g = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     cond = torch.rand(BATCH_TIME, 3, 128, 128, device="cuda", generator=g) * 2 - 1
     img = torch.randn(BATCH_TIME, 3, 128, 128, device="cuda", generator=g)
     steps = iter(range(1999, -1, -1))
+    return lambda: trainer.diffusion.p_sample_step(
+        net, sched, img, next(steps), cond, generator=g)
+
+
+def _serving_step_ms(torch, trainer, when):
+    """The mean ms of 20 serving steps, printed with ``when``."""
     with torch.inference_mode():
-        step_ms = _time_ms(torch, lambda: diff.p_sample_step(
-            net, sched, img, next(steps), cond, generator=g))
+        ms = _time_ms(torch, _serving_step(torch, trainer, 3))
+    print(f"  UNet step (p_sample_step) B={BATCH_TIME} {trainer.netG.dtype}, "
+          f"{when}: {ms:.3f} ms/step (mean of 20 steps of the T=2000 "
+          f"chain)", flush=True)
+    return ms
+
+
+@phase("timing")
+def timing_phase(torch, trainer):
+    """The 16->128 serving step, first before any torch.profiler run
+    of the process (the path's reading), then with a profiler window (busy
+    share, launches) and again after it; then K1, K2 and K4 at its shapes
+    against their plain versions."""
+    from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
+
+    step_ms = _serving_step_ms(torch, trainer, "before any profiler")
     ips = BATCH_TIME / (2000 * step_ms / 1000)
-    print(f"  UNet step (p_sample_step) B={BATCH_TIME} {net.dtype}: "
-          f"{step_ms:.3f} ms/step (mean of 20 steps of the T=2000 chain); "
-          f"2000-step throughput extrapolated {ips:.4f} img/s", flush=True)
+    print(f"  2000-step throughput extrapolated {ips:.4f} img/s", flush=True)
     _mfu(CONFIG, BATCH_TIME, step_ms)
     with torch.inference_mode():  # device launches and busy share
-        _profile_steps(torch, lambda: diff.p_sample_step(
-            net, sched, img, next(steps), cond, generator=g), 2)
-
+        _profile_steps(torch, _serving_step(torch, trainer, 3), 2)
+    _serving_step_ms(torch, trainer, "after a profiler window")
+    g = torch.Generator(device="cuda").manual_seed(3)
     dt, cl = torch.bfloat16, torch.channels_last
     times = {}
 
@@ -2910,7 +2927,8 @@ def _log_checked(trainer, label):
 def trace_phase(torch, trainer, workdir):
     """sr3_tpu_torch.utils.profiler.trace around two bf16 serving steps
     (p_sample_step at batch 8 of the T=2000 chain): one trace file, whose
-    device kernels include K1's conv and K4."""
+    device kernels include K1's conv and K4. Then the serving step timed
+    again, after the trace."""
     import glob
 
     from sr3_tpu_torch.models.schedule import make_schedule
@@ -2945,6 +2963,7 @@ def trace_phase(torch, trainer, workdir):
         print(f"    {want}*: {hits[:4]}", flush=True)
         if not hits:
             raise AssertionError(f"no {want}* kernel in the trace")
+    _serving_step_ms(torch, trainer, "after the profiler trace")
 
 
 def _fixture_opt(dtype, num_workers=0):
@@ -4196,8 +4215,8 @@ def main():
         gn_launch_phase(torch)
         trainer = model_phase(torch)
         serving = serving_phase(torch, trainer)
-        trace_phase(torch, trainer, workdir)
         times = timing_phase(torch, trainer)
+        trace_phase(torch, trainer, workdir)
         strided = strided_phase(torch, trainer)
         val = val_phase(torch, trainer, results)
         fid_phase(torch, results)

@@ -2,8 +2,9 @@
 counted FLOPs (``sr3_tpu_torch/utils/flops.py``).
 
 The bench runs as a subprocess on tests/test_bench.py's tiny config and
-knobs: the JAX bench's five lines, names, order and units, every key of the
-matching JAX line, the device named, no MFU from a CPU run. The FLOP count
+knobs, beside the root bench.py on the same: the JAX bench's five lines,
+names, order and units, the keys of each of its lines and the device
+besides, no MFU from a CPU run. The FLOP count
 of one 16->128 reverse step, and of one sr_sr3_64_512 step, is held within
 5% of XLA's cost analysis of the JAX package's ``p_sample_step`` (CPU,
 float32, batch 1: the count takes no elementwise work, XLA's takes all of
@@ -35,28 +36,21 @@ from test_bench import TINY_CFG
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_16_128 = os.path.join(REPO, "configs", "sr_sr3_16_128.json")
 
-# the keys of each JSON line of the root bench.py (bench.py:204-211,
-# 325-349 and 380-395, 436-452, 478-492, 531-540), in printed order
-JAX_KEYS = {
-    "train_step_throughput": {"metric", "value", "unit", "vs_baseline",
-                              "mfu", "batch", "step_ms"},
-    "train_step_loader_throughput": {
-        "metric", "value", "unit", "vs_baseline", "batch", "step_ms",
-        "transfer_only_step_ms", "loader_overhead_ms", "loader_workers",
-        "fraction_of_synthetic_rate", "transfer_gap_ms", "input_bound",
-        "transfer_bound"},
-    "sampling_ddim4_eta1_throughput": {"metric", "value", "unit",
-                                       "vs_baseline", "nfe", "batch",
-                                       "quality_vs_ancestral_T2000"},
-    "sampling_dpmpp4_throughput": {"metric", "value", "unit", "vs_baseline",
-                                   "nfe", "batch",
-                                   "quality_vs_ancestral_T2000"},
-    "sampling_2000step_throughput": {"metric", "value", "unit",
-                                     "vs_baseline", "mfu", "batch"},
-}
+# the metric names of the bench's lines, less the config's stem, in order
+LINES = ["train_step_throughput", "train_step_loader_throughput",
+         "sampling_ddim4_eta1_throughput", "sampling_dpmpp4_throughput",
+         "sampling_2000step_throughput"]
+
+
+def _bench_lines(proc, out, err):
+    assert proc.returncode == 0, err[-3000:]
+    return [json.loads(l) for l in out.splitlines() if l.startswith("{")]
 
 
 def test_bench_cli_prints_the_jax_benchs_lines_on_the_cpu(tmp_path):
+    """The port's bench and the root bench.py, side by side on the tiny
+    config: the same metric names in the same order, and each line with the
+    keys of the root bench's line and the device besides."""
     cfg = tmp_path / "bench_tiny.json"
     cfg.write_text(json.dumps(TINY_CFG))
     env = {
@@ -73,20 +67,22 @@ def test_bench_cli_prints_the_jax_benchs_lines_on_the_cpu(tmp_path):
         "BENCH_DPMPP_STEPS": "4",
         "BENCH_DDIM_STEPS": "4",
     }
-    out = subprocess.run(
-        [sys.executable, "-m", "sr3_tpu_torch.bench"], cwd=tmp_path, env=env,
-        capture_output=True, text=True, timeout=600)
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert "# device: cpu" in out.stderr
-    lines = [json.loads(l) for l in out.stdout.splitlines()
-             if l.startswith("{")]
+    run = lambda args, cwd: subprocess.Popen(
+        [sys.executable, *args], cwd=cwd, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    procs = [run(["-m", "sr3_tpu_torch.bench"], tmp_path),
+             run(["bench.py"], REPO)]
+    (port, out, err), root = [(p, *p.communicate(timeout=900))
+                              for p in procs]
+    lines, jax_lines = _bench_lines(port, out, err), _bench_lines(*root)
+    assert "# device: cpu" in err
     assert [m["metric"] for m in lines] == [
-        f"bench_tiny_{k}" for k in JAX_KEYS]
-    for m, keys in zip(lines, JAX_KEYS.values()):
-        assert keys <= set(m), (m["metric"], keys - set(m))
-        assert set(m) - keys == {"device"}, m["metric"]
+        m["metric"] for m in jax_lines] == [f"bench_tiny_{k}" for k in LINES]
+    for m, ref in zip(lines, jax_lines):
+        assert set(m) - {"device"} == set(ref), (
+            m["metric"], set(m) ^ set(ref))
         assert m["device"] == "cpu"
-        assert m["unit"] == "images/sec/chip"
+        assert m["unit"] == ref["unit"] == "images/sec/chip"
         assert m["value"] > 0 and m["vs_baseline"] > 0
     assert lines[0]["mfu"] is None and lines[-1]["mfu"] is None
     loader = lines[1]

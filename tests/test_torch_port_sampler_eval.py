@@ -191,3 +191,67 @@ def test_a_val_phase_resume_samples_with_the_ema_weights(tmp_path):
         torch.testing.assert_close(p, ema, rtol=0, atol=0, msg=name)
         moved += not torch.equal(ema, raw)
     assert moved > 0
+
+
+@pytest.mark.parametrize("ema", [True, False])
+def test_a_val_phase_resume_samples_with_the_jax_trainers_weights(tmp_path,
+                                                                  ema):
+    """The JAX val-phase Trainer resumed from a checkpoint of 2 EMA train
+    steps samples with its ema_params when EMA is on, else with its params
+    (sr3_tpu/training/trainer.py load_network, _eval_params). The same
+    weights, carried into the port's _gen.pth and _opt.pth through
+    torch_compat, give the port's val-phase Trainer the same sampling
+    network, exactly."""
+    import jax
+
+    from sr3_tpu.parallel.mesh import create_mesh
+    from sr3_tpu.training.trainer import Trainer as JaxTrainer
+    from sr3_tpu.utils.config import dict_to_nonedict as jax_nonedict
+    from sr3_tpu_torch.models.networks import define_G
+    from sr3_tpu_torch.utils.torch_compat import (
+        flax_params_to_torch_state_dict, strip_reference_keys,
+        unet_key_config)
+
+    opt = _opt(tmp_path, ema=True)
+    os.makedirs(tmp_path / "ckpt")
+    jt = JaxTrainer(jax_nonedict(copy.deepcopy(opt)),
+                    mesh=create_mesh(num_data=1))
+    jt.set_new_noise_schedule(opt["model"]["beta_schedule"]["train"],
+                              "train")
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        jt.feed_data({**{k: rng.uniform(-1, 1, (2, 16, 16, 3))
+                         .astype(np.float32) for k in ("HR", "SR")},
+                      "Index": np.arange(2)})
+        jt.optimize_parameters()
+    jt.save_network(epoch=0, iter_step=2)
+    jt.wait_for_checkpoints()
+
+    val = copy.deepcopy(opt)
+    val["phase"] = "val"
+    val["train"]["ema_scheduler"]["use_ema"] = ema
+    val["path"]["resume_state"] = str(tmp_path / "ckpt" / "I2_E0")
+    jval = JaxTrainer(jax_nonedict(copy.deepcopy(val)),
+                      mesh=create_mesh(num_data=1))
+    keys = unet_key_config(define_G(val, device="cpu").denoise_fn)
+    as_torch = lambda tree: {
+        k: torch.tensor(v) for k, v in strip_reference_keys(
+            flax_params_to_torch_state_dict(jax.device_get(tree),
+                                            **keys)).items()}
+    want = as_torch(jval._eval_params())
+    raw = as_torch(jt.state.params)
+    assert any(not torch.equal(want[k], raw[k]) for k in raw) == ema
+
+    # the port's checkpoint of the same weights
+    prefix = str(tmp_path / "ckpt" / "I2_E0_port")
+    torch.save({"denoise_fn." + k: v for k, v in raw.items()},
+               prefix + "_gen.pth")
+    torch.save({"epoch": 0, "iter": 2, "scheduler": None, "optimizer": None,
+                "ema": as_torch(jt.state.ema_params)}, prefix + "_opt.pth")
+    val["path"]["resume_state"] = prefix
+    net = Trainer(dict_to_nonedict(val), device="cpu")._eval_params()
+    got = dict(net.named_parameters())
+    assert set(got) == set(want)
+    for name, w in want.items():
+        torch.testing.assert_close(got[name].detach(), w, rtol=0, atol=0,
+                                   msg=name)

@@ -10,7 +10,10 @@ the CPU. The JAX loops draw their own noise: the test makes the same
 ``split(key)`` at each step) and feeds the draws to the port through
 ``noise_stream``. Every frame within atol 5e-4 (five chained UNet steps; the
 x0 = (x - s*eps)/a of both chains amplifies float32 rounding where abar is
-small, by 1/sqrt(abar) <= 1.1 on this schedule).
+small, by 1/sqrt(abar) <= 1.1 on this schedule). The ancestral chain and
+the 50-step DDIM and SDE DPM-Solver++ chains also run at
+configs/_traj100k.json's T=2000 train schedule, the one its checkpoints
+are scored at, to the same atol.
 """
 
 import functools
@@ -126,6 +129,46 @@ def test_strided_chain_matches_jax(sampler, eta, conditional, continuous):
     np.testing.assert_allclose(out, ref, atol=5e-4, rtol=0)
     if continuous and not conditional:  # frame 0: the initial noise
         np.testing.assert_array_equal(out[:2], nhwc(jax_draws(key, S)[0]))
+
+
+# configs/_traj100k.json's train schedule, at which its checkpoints are
+# scored (T=2000, the ancestral chain and 50-step strided chains, eta 1)
+TRAJ_SCHED = {"schedule": "linear", "n_timestep": 2000, "linear_start": 1e-6,
+              "linear_end": 1e-2}
+
+
+@pytest.mark.parametrize("sampler", ["ddpm", "ddim", "dpm++"])
+def test_chains_at_the_traj100k_schedule_match_jax(sampler):
+    """The chains that score a _traj100k checkpoint, on the JAX package's
+    draws: the port's final image against the JAX chain's, float32."""
+    diffusion, params = jax_model(True)
+    diff = port_model(True)
+    rng = np.random.default_rng(8)
+    cond = (0.5 * rng.standard_normal(SHAPE)).astype(np.float32)
+    jsched = jax_make_schedule(TRAJ_SCHED)
+    key = jax.random.PRNGKey(12)
+    if sampler == "ddpm":
+        init = rng.standard_normal(SHAPE).astype(np.float32)
+        steps = rng.standard_normal((2000,) + SHAPE).astype(np.float32)
+        ref = jax.jit(lambda p, ns: diffusion.p_sample_loop(
+            p, jsched, cond, key, noise_stream=ns))(params, (init, steps))
+        ns = (nchw(init), torch.from_numpy(steps).permute(0, 1, 4, 2, 3))
+        run = lambda: diff.p_sample_loop(diff.denoise_fn,
+                                         make_schedule(TRAJ_SCHED),
+                                         nchw(cond), noise_stream=ns)
+    else:
+        jloop = (diffusion.ddim_sample_loop if sampler == "ddim"
+                 else diffusion.dpmpp_sample_loop)
+        loop = (diff.ddim_sample_loop if sampler == "ddim"
+                else diff.dpmpp_sample_loop)
+        ref = jax.jit(lambda p: jloop(p, jsched, cond, key, n_steps=50,
+                                      eta=1.0))(params)
+        run = lambda: loop(diff.denoise_fn, make_schedule(TRAJ_SCHED),
+                           nchw(cond), n_steps=50, eta=1.0,
+                           noise_stream=jax_draws(key, 50))
+    with torch.inference_mode():
+        out = nhwc(run())
+    np.testing.assert_allclose(out, np.asarray(ref), atol=5e-4, rtol=0)
 
 
 @pytest.mark.parametrize("clip", [False, True])
