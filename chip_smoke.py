@@ -18,15 +18,18 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
      (K2_SITES, K2_SITES_512, checked against the models) at every batch
      the paths run it at (k2_batches), each check labelled with the cluster
      size it launched, a ragged map and a slice too large for a cluster's
-     shared memory; K4's logsumexp and
+     shared memory; K4 (each bf16 check labelled with the head_dim class
+     it launched, and the merge of a key split), its logsumexp and
      the backward
-     kernels K5 / K6 at the training shapes and a ragged one; the autograd
+     kernels K5 / K6 at the training shapes, a ragged one and a ragged key
+     split; the autograd
      Functions of K1, K2 and K4 against autograd of their plain versions,
      every input gradient; then the GroupNorm launches: device kernels per
      call from torch.profiler (K2: 1; K1: 2, its statistics and its conv),
      two calls on the same input bit-identical, K1's ticket counters back
      at 0, and the C library's plan (cluster size, channel block,
-     residency) printed for every K2 site;
+     residency) printed for every K2 site; then "K4 classes": every bf16
+     K4 class and the merge checked;
   4. full-width model: the 97.8M-parameter SR3 16->128 UNet (random seeded
      weights), one float32 forward on the card (kernels) against the same
      weights on the CPU (plain versions), and the bf16 sampling copy of the
@@ -60,9 +63,10 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      statistics route of group_norm against group_norm_plain, forward and
      input gradients;
  11. long-sequence attention: K4 with its logsumexp, K5 and K6 against the
-     plain versions at 4096 and 1024 tokens (head_dim 512) and at 16384
-     tokens (head_dim 256); the bf16 K4 autograd Function at 4096 and 16384
-     tokens;
+     plain versions at 4096 and 1024 tokens (head_dim 512; batch*heads 2
+     and 8) and at 16384 tokens (head_dim 256); the bf16 K4 autograd
+     Function at 4096 and 16384 tokens; then "K4 classes": every bf16 K4
+     class launched since phase 3 was checked;
  12. 64->512 training path: the full-width train-phase Trainer (70.0M
      parameters, batch 2, bf16, dropout 0.2, remat) through train_loop for
      TRAIN_STEPS_512 steps; counters zeroed just before; K1-K6 launched, K3
@@ -92,7 +96,8 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      over 989 TFLOP/s). Beside K1, cuDNN's conv3x3 alone at its shape (not
      the same function, so not library_ms); K2 also at the 16->128 training
      site 4x64x128^2 with SiLU and the 64->512 serving site 8x512x64^2. The
-     JSON line carries the first shape of each.
+     JSON line carries the first shape of each. Then "K4 classes": every
+     bf16 K4 class launched since phase 11 was checked.
 The rest of the sampling surface (phases 18 and 19 run right after phase
 6, on its serving trainer; phase 3 also checks K1 and K2 at every site of
 the three models below, checked against their Blocks, K1 of the six-level
@@ -175,7 +180,8 @@ Every timed UNet step, train step and strided chain (phases 6, 9, 15,
 counts for it over its median ms, against 989 TFLOP/s.
 After phase 41 the bf16 K1 tiles, and K2's (dtype, cluster size,
 residency), launched since phase 3 (the main paths and the timing) must
-all be ones that phase 3 checked.
+all be ones that phase 3 checked, and the bf16 K4 classes launched since
+phase 17 ones that phases 3 and 11 checked.
 The JAX package's host modules in the port (phase 35 runs right after
 phase 5, as early as it can: late in a long process the profiler has kept
 no record of whole windows; phase 38 right after phase 19, on its files;
@@ -313,8 +319,9 @@ K2_SERVING = [(512, 16), (512, 8)]         # (C, H=W), swish off, timed
 K2_EXTRA = [(2, 96, 10, 10, 32, True), (1, 256, 128, 128, 2, True)]
 K4_SHAPES = [(256, 512), (64, 512)]        # (seq, head_dim)
 # (batch*heads, seq, head_dim) of K4-with-lse, K5 and K6 in the train step
-# at batch 4, and a ragged shape
-BWD_SHAPES = [(4, 256, 512), (4, 64, 512), (3, 100, 64)]
+# at batch 4, a ragged shape, and a ragged one whose keys K4 splits (as it
+# does at the 64->512 path's 2x1024x512), so that phase 3 checks the merge
+BWD_SHAPES = [(4, 256, 512), (4, 64, 512), (3, 100, 64), (2, 1000, 512)]
 
 # The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json: 70.0M
 # parameters, 16 norm groups, attention at 64x64 and 32x32, remat, dropout
@@ -351,9 +358,10 @@ K3_LARGE = [(8, 128, 1024, 1024)]
 # K3_TOL of s2 (float32 partial sums of a few thousand terms, in a tree)
 K3_TOL = 1e-5
 # (batch*heads, seq, head_dim): the 64->512 path's 64x64 and 32x32
-# attention, and 16384 tokens (attention at 128x128 on that model)
+# attention, 16384 tokens (attention at 128x128 on that model), the
+# 1024-token serving batch and the 4096-token one of the 512^2 serving step
 LONG_SHAPES = [(2, 4096, 512), (2, 1024, 512), (1, 16384, 256),
-               (8, 1024, 512)]
+               (8, 1024, 512), (8, 4096, 512)]
 # remat on against remat off, float32, same seed and dropout draws, cuDNN's
 # deterministic algorithms: the same operations on the same values
 REMAT_TOL = 1e-5
@@ -422,6 +430,12 @@ FMA, MMA = "float32 FMA", "bf16 mma.sync tensor cores, float32 accumulate"
 WGMMA = ("bf16 wgmma tensor cores (A by ldmatrix from registers, B by "
          "shared-memory descriptor), float32 accumulate, cp.async weight "
          "ring and halo")
+K4_WGMMA = ("bf16 wgmma tensor cores (S = Q K^T by shared-memory "
+            "descriptors, P V with P from registers and V by a transposed "
+            "descriptor), float32 accumulate; TMA loads of a K / V ring "
+            "under mbarriers from one producer warp; a class per head_dim "
+            "(attention.BF16_TILES); below half a wave of blocks a key "
+            "split merged in a fixed order by a second launch")
 GN_CLUSTER = ("one launch: a thread-block cluster per (image, channel "
               "block), 16-byte loads, the range resident in shared memory, "
               "sums folded through distributed shared memory in rank order, "
@@ -435,7 +449,7 @@ KERNELS = {
                    {"float32": GN_CLUSTER, "bfloat16": GN_CLUSTER}),
     "flash_attention_fwd": ("sr3_tpu_torch/csrc/attention.cu",
                             "sr3_tpu/ops/attention.py:58",
-                            {"float32": FMA, "bfloat16": MMA + ", cp.async"}),
+                            {"float32": FMA, "bfloat16": K4_WGMMA}),
     "flash_attention_bwd_dkv": ("sr3_tpu_torch/csrc/attention_bwd.cu",
                                 "sr3_tpu/ops/attention.py:163",
                                 {"float32": FMA,
@@ -651,7 +665,7 @@ def kernel_phase(torch, errs):
         for b in k2_batches(opt):
             k2_cases += [(b, c, h, h, groups, swish) for c, h, swish in sites
                          if (b, c, h, h, groups, swish) not in k2_cases]
-    checked_tiles, checked_clusters = set(), set()
+    checked_tiles, checked_clusters, checked_k4 = set(), set(), set()
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for b, cin, cout, hw in k1_cases:
@@ -688,15 +702,18 @@ def kernel_phase(torch, errs):
         for seq, d in K4_SHAPES + K4_SHAPES_DDPM_128:
             q, k, v = (torch.randn(BATCH_CHECK, seq, d, device="cuda",
                                    generator=g).to(dtype) for _ in range(3))
-            record("flash_attention_fwd", dn, f"{BATCH_CHECK}x{seq}x{d}",
-                   attention.attention(q, k, v, d ** -0.5),
+            attention.bf16_tile_launches(reset=True)
+            out = attention.attention(q, k, v, d ** -0.5)
+            record("flash_attention_fwd", dn, f"{BATCH_CHECK}x{seq}x{d}"
+                   + k4_classes(checked_k4), out,
                    attention.attention_plain(q, k, v, d ** -0.5))
         for bh, seq, d in BWD_SHAPES + BWD_SHAPES_DDPM_128:
             q, k, v = (torch.randn(bh, seq, d, device="cuda",
                                    generator=g).to(dtype) for _ in range(3))
             gr = torch.randn(bh, seq, d, device="cuda", generator=g)
-            label = f"{bh}x{seq}x{d}"
+            attention.bf16_tile_launches(reset=True)
             o, lse = attention.attention_fwd(q, k, v, d ** -0.5)
+            label = f"{bh}x{seq}x{d}" + k4_classes(checked_k4)
             ref_o, ref_lse = attention.attention_fwd_plain(q, k, v, d ** -0.5)
             record("flash_attention_fwd", dn, label + " with lse: o", o, ref_o)
             check(torch, errs, failures, "flash_attention_fwd", dn,
@@ -712,7 +729,9 @@ def kernel_phase(torch, errs):
             record("flash_attention_bwd_dq", dn, label + ": dq", dq, rq)
         for name, call, wrapper, plain, inputs in _function_cases(
                 torch, g, dtype):
+            attention.bf16_tile_launches(reset=True)
             grads = function_grads(torch, call, wrapper, plain, inputs)
+            k4_classes(checked_k4)
             for i, (got, ref) in enumerate(zip(*grads)):
                 record_fn(name, dn, i, got, ref)
     if failures:
@@ -720,7 +739,8 @@ def kernel_phase(torch, errs):
                              f"{failures}")
     conv_fused.bf16_tile_launches(reset=True)
     groupnorm.cluster_launches(reset=True)
-    return checked_tiles, checked_clusters
+    attention.bf16_tile_launches(reset=True)
+    return checked_tiles, checked_clusters, checked_k4
 
 
 @phase("K1 tiles")
@@ -734,6 +754,33 @@ def k1_tile_phase(checked):
     if not taken or set(taken) - checked:
         raise AssertionError(f"bf16 K1 tiles launched but not checked: "
                              f"{sorted(set(taken) - checked)}")
+
+
+def k4_classes(checked):
+    """The bf16 K4 classes (and the merge) launched since the last reset,
+    added to ``checked``, as a label for the check that launched them."""
+    from sr3_tpu_torch.ops import attention
+
+    taken = [t for t, n in attention.bf16_tile_launches().items() if n]
+    checked.update(taken)
+    return " class " + ",".join(taken) if taken else ""
+
+
+@phase("K4 classes")
+def k4_class_phase(checked, since):
+    """Fail unless every bf16 K4 class and the merge was checked against
+    the plain version (phases 3 and 11), and every one launched since the
+    last reading was among them; then set the counts to 0."""
+    from sr3_tpu_torch.ops import attention
+
+    taken = {t: n for t, n in attention.bf16_tile_launches(reset=True)
+             .items() if n}
+    print(f"  bf16 K4 launches by class since {since}: {taken}; checked: "
+          f"{sorted(checked)}", flush=True)
+    missing = set(attention.BF16_TILES) - checked
+    if missing or set(taken) - checked:
+        raise AssertionError(f"bf16 K4 classes not checked: "
+                             f"{sorted(missing | (set(taken) - checked))}")
 
 
 @phase("K2 clusters")
@@ -1394,15 +1441,17 @@ def long_attention_phase(torch, errs):
     from sr3_tpu_torch.ops import attention
 
     g = torch.Generator(device="cuda").manual_seed(11)
-    failures = []
+    failures, checked = [], set()
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for bh, seq, d in LONG_SHAPES:
             q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=g)
                        .to(dtype) for _ in range(3))
             gr = torch.randn(bh, seq, d, device="cuda", generator=g)
-            label, scale = f"{bh}x{seq}x{d}", d ** -0.5
-            o, lse = attention.attention_fwd(q, k, v, scale)
+            attention.bf16_tile_launches(reset=True)
+            o, lse = attention.attention_fwd(q, k, v, d ** -0.5)
+            label = f"{bh}x{seq}x{d}" + k4_classes(checked)
+            scale = d ** -0.5
             ref_o, ref_lse = attention.attention_fwd_plain(q, k, v, scale)
             check(torch, errs, failures, "flash_attention_fwd", dn,
                   label + " with lse: o", o, ref_o)
@@ -1438,6 +1487,7 @@ def long_attention_phase(torch, errs):
     if failures:
         raise AssertionError(f"long-sequence attention disagrees with the "
                              f"plain versions: {failures}")
+    return checked
 
 
 def k3_shapes(torch, config):
@@ -4211,7 +4261,9 @@ def main():
         build_phase()
         errs = {}
         # the SR3 16->128 serving and training paths
-        checked_tiles, checked_clusters = kernel_phase(torch, errs)
+        checked_tiles, checked_clusters, checked_k4 = kernel_phase(torch,
+                                                                   errs)
+        k4_class_phase(checked_k4, "phase 3")
         gn_launch_phase(torch)
         trainer = model_phase(torch)
         serving = serving_phase(torch, trainer)
@@ -4234,7 +4286,8 @@ def main():
         torch.cuda.empty_cache()
         # the SR3 64->512 training path, and its serving path
         k3_phase(torch, errs)
-        long_attention_phase(torch, errs)
+        checked_k4 |= long_attention_phase(torch, errs)
+        k4_class_phase(checked_k4, "phase 3")
         trainer, launches = training_512_phase(torch)
         grad_check_512_phase(torch)
         bf16_attention_grad_phase(torch)
@@ -4242,6 +4295,7 @@ def main():
         del trainer
         serving_512 = serving_512_phase(torch)
         timings = kernel_timing_512_phase(torch)
+        k4_class_phase(checked_k4, "phase 11")
         # the rest of the sampling surface: ddpm, unconditional
         ddpm = ddpm_phase(torch)
         uncond = uncond_phase(torch)
@@ -4264,6 +4318,7 @@ def main():
         bench_phase(torch)
         k1_tile_phase(checked_tiles)
         k2_cluster_phase(checked_clusters)
+        k4_class_phase(checked_k4, "phase 17")
         # the parallel paths (two ranks) and K1's halo entry
         par, backend = parallel_phase(torch)
         timings["gn_silu_conv3x3_halo"] = halo_timing_phase(torch)

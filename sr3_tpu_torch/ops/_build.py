@@ -57,8 +57,14 @@ _SIGNATURES = {
     "sr3_gn_silu_conv3x3_halo": ([_P] * 9 + [_I] * 6 + [_P], _I),
     # counts (4 long long), reset
     "sr3_gn_silu_conv3x3_tiles": ([_P, _I], _I),
-    # q, k, v, o, lse, BH, S, D, scale, dtype, stream
-    "sr3_flash_attention_fwd": ([_P] * 5 + [_I] * 3 + [_F, _I, _P], _I),
+    # q, k, v, o, lse, workspace, BH, S, D, scale, dtype, stream
+    "sr3_flash_attention_fwd": ([_P] * 6 + [_I] * 3 + [_F, _I, _P], _I),
+    # BH, S, D, dtype
+    "sr3_flash_attention_fwd_workspace_floats": ([_I] * 4, _L),
+    # BH, S, D, out (7 long long)
+    "sr3_flash_attention_fwd_plan": ([_I] * 3 + [_P], _I),
+    # counts (5 long long), reset
+    "sr3_flash_attention_fwd_tiles": ([_P, _I], _I),
     # q, k, v, g (of dtype), lse, dsum, dk, dv, BH, S, D, scale, dtype,
     # stream
     "sr3_flash_attention_bwd_dkv": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),

@@ -20,6 +20,8 @@ reasons).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from sr3_tpu_torch.ops import _build
@@ -28,6 +30,35 @@ counter = _build.LaunchCount("flash_attention_fwd")
 dkv_counter = _build.LaunchCount("flash_attention_bwd_dkv")
 dq_counter = _build.LaunchCount("flash_attention_bwd_dq")
 MAX_HEAD_DIM = 512
+# K4's bfloat16 route: its head_dim classes <DC, BK> (columns, keys a tile)
+# and the merge of a key split, in the order sr3_flash_attention_fwd_tiles
+# reports their launches.
+BF16_TILES = ("<64,128>", "<128,128>", "<256,64>", "<512,64>", "merge")
+# the fields of sr3_flash_attention_fwd_plan
+PLAN_FIELDS = ("cls", "rows", "bk", "q_tiles", "key_tiles", "splits", "per")
+
+
+def bf16_tile_launches(reset=False):
+    """Launches of each bfloat16 class and of the merge since the last
+    reset, by BF16_TILES name; ``reset`` sets them to 0 after reading.
+    Loads the CUDA library."""
+    counts = (ctypes.c_longlong * len(BF16_TILES))()
+    n = _build.load_library().sr3_flash_attention_fwd_tiles(counts,
+                                                            int(reset))
+    if n != len(BF16_TILES):
+        raise RuntimeError(f"the library reports {n} K4 launch counts, "
+                           f"expected {len(BF16_TILES)}")
+    return dict(zip(BF16_TILES, counts))
+
+
+def fwd_plan(bh, seq, d):
+    """The bfloat16 route's launch plan for (bh, seq, d) on the current
+    device, from the C library: a dict of PLAN_FIELDS."""
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    if _build.load_library().sr3_flash_attention_fwd_plan(bh, seq, d,
+                                                          out) < 0:
+        raise ValueError(f"K4 does not take (bh, seq, d) = {(bh, seq, d)}")
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def attention_plain(q, k, v, scale):
@@ -83,12 +114,18 @@ def _check_qkv(q, k, v):
 def _fwd_kernel(q, k, v, scale, with_lse):
     bh, seq, d = q.shape
     lib = _build.load_library()
+    code = _build.dtype_code(q)
     out = torch.empty((bh, seq, d), dtype=torch.float32, device=q.device)
     lse = (torch.empty((bh, seq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    n = lib.sr3_flash_attention_fwd_workspace_floats(bh, seq, d, code)
+    if n < 0:
+        raise RuntimeError(f"sr3_flash_attention_fwd takes no {(bh, seq, d)} "
+                           f"of {q.dtype}, or the device could not be read")
+    ws = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     err = lib.sr3_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.ptr(lse), bh, seq, d, float(scale), _build.dtype_code(q),
+        _build.ptr(lse), _build.ptr(ws), bh, seq, d, float(scale), code,
         _build.stream_of(q),
     )
     _build.check(err, "sr3_flash_attention_fwd")

@@ -1,25 +1,37 @@
-"""The bfloat16 tensor-core routes of K4, K5 and K6 on the CPU, and the
-kernels' C signatures.
+"""The bfloat16 tensor-core routes of K4, K5 and K6 on the CPU, K4's launch
+plan, and the kernels' C signatures.
 
 The card's bf16 kernels round P (K4), dO, P and dS (K5) and dO, dS (K6) to
 bf16 before their products, where the plain versions, the JAX package's XLA
 spec and its TPU kernels keep them in float32. The CUDA kernels cannot run
 here, so ``_k4_rounding``, ``_k5_rounding`` and ``_k6_rounding`` below
-write that rounding out in PyTorch (test helpers, not a knob of the
+write that arithmetic out in PyTorch (test helpers, not a knob of the
 package), and the tests hold them against ``attention_xla`` and ``jax.vjp``
-of it on the same bf16 inputs (numpy seed) at head_dim 512: within 2e-2 of
-max|ref|, the bound the card checks use for K4's o, K5's dk, dv and K6's
-dq. The exact plain versions, and K4's logsumexp, stay within 1e-4.
+of it on the same bf16 inputs (numpy seed): within 2e-2 of max|ref|, the
+bound the card checks use for K4's o, K5's dk, dv and K6's dq. The exact
+plain versions, and K4's logsumexp, stay within 1e-4. ``_k4_rounding``
+follows K4's wgmma kernel (``csrc/attention.cu``): per key tile of its
+head_dim class the online softmax with its running max in the base-2
+exponent, P rounded to bf16 at that tile's max, l the sum of the unrounded
+P; and, where the launch plan splits the keys, each split's unnormalised
+O, m and l merged in split order.
+
+K4's launch plan is mirrored in ``tests/torch_port_attention_plan.py``;
+the tests here check that its blocks cover every (query, key) pair once,
+that every head_dim the wrapper takes maps to a class the C source
+instantiates, and that the merge order is fixed.
 
 The last tests guard the ctypes boundary: every ``extern "C"`` entry of
 ``csrc/*.cu`` against the ctypes signatures in ``_build._SIGNATURES`` (a
 changed C signature cannot reach ctypes mismatched), the order in which
-the library counts K1's bfloat16 tiles against ``conv_fused.BF16_TILES``,
-and the backward launcher's refusal of a dO in another dtype than q.
+the library counts K1's bfloat16 tiles against ``conv_fused.BF16_TILES``
+and K4's classes against ``attention.BF16_TILES``, and the backward
+launcher's refusal of a dO in another dtype than q.
 """
 
 import ctypes
 import glob
+import math
 import os
 import re
 
@@ -33,6 +45,7 @@ from jax.scipy.special import logsumexp
 
 from sr3_tpu.ops.attention import attention_xla
 from sr3_tpu_torch.ops import _build, attention, conv_fused
+import torch_port_attention_plan as plan_mirror
 
 TOL_BF16 = 2e-2   # K4's o, K5's dk / dv, K6's dq on the bf16 route
 TOL_EXACT = 1e-4  # the plain versions; K4's logsumexp on both routes
@@ -56,25 +69,65 @@ def _rel(out, ref):
     return float(np.abs(out - ref).max() / np.abs(ref).max())
 
 
-def _inputs(seed, bh, seq):
+def _inputs(seed, bh, seq, d=D):
     """bf16-valued q, k, v (as float32 torch tensors) and a float32 output
     gradient, from a numpy seed."""
     rng = np.random.default_rng(seed)
     q, k, v = (_bf16(torch.from_numpy(
-        rng.standard_normal((bh, seq, D)).astype(np.float32)))
+        rng.standard_normal((bh, seq, d)).astype(np.float32)))
         for _ in range(3))
-    g = torch.from_numpy(rng.standard_normal((bh, seq, D)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((bh, seq, d)).astype(np.float32))
     return q, k, v, g
 
 
+def _k4_partials(q, k, v, scale):
+    """Each key split's (unnormalised O, m, l) as K4's wgmma kernel leaves
+    them, in split order: per key tile of the plan the scores in float32,
+    scaled into the base-2 exponent, the running max m, P = 2^(s - m)
+    rounded to bf16 before P V, l the sum of the unrounded P."""
+    bh, seq, d = q.shape
+    p = plan_mirror.fwd_plan(bh, seq, d)
+    c = scale * math.log2(math.e)
+    parts = []
+    for z in range(p["splits"]):
+        m = torch.full((bh, seq), -math.inf)
+        l = torch.zeros(bh, seq)
+        acc = torch.zeros(bh, seq, d)
+        for t in range(z * p["per"], min(p["key_tiles"], (z + 1) * p["per"])):
+            k0, k1 = t * p["bk"], min(seq, (t + 1) * p["bk"])
+            s = torch.einsum("bqd,bkd->bqk", q, k[:, k0:k1]) * c
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - mx)
+            pr = torch.exp2(s - mx[..., None])
+            l = l * alpha + pr.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqk,bkd->bqd", _bf16(pr), v[:, k0:k1])
+            m = mx
+        parts.append((acc, m, l))
+    return parts
+
+
+def _k4_merge(parts):
+    """(o, lse) from the splits' (O, m, l), folded in split order as
+    flash_merge_kernel does (one split: O / l)."""
+    if len(parts) == 1:
+        acc, m, l = parts[0]
+        return acc / l[..., None], m * math.log(2) + torch.log(l)
+    mx = parts[0][1]
+    for _, m, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    total = torch.zeros_like(mx)
+    for _, m, l in parts:
+        total = total + l * torch.exp2(m - mx)
+    o = torch.zeros_like(parts[0][0])
+    for acc, m, _ in parts:
+        o = o + acc * (torch.exp2(m - mx) / total)[..., None]
+    return o, mx * math.log(2) + torch.log(total)
+
+
 def _k4_rounding(q, k, v, scale):
-    """(o, lse) as K4's bf16 route computes them: float32 scores and
-    softmax statistics, P rounded to bf16 before P V, l the sum of the
-    unrounded P."""
-    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    o = torch.einsum("bqk,bkd->bqd", _bf16(p), v) / p.sum(-1, keepdim=True)
-    return o, torch.logsumexp(s, dim=-1)
+    """(o, lse) as K4's bf16 route computes them: _k4_partials merged."""
+    return _k4_merge(_k4_partials(q, k, v, scale))
 
 
 def _k5_rounding(q, k, v, g, lse, dsum, scale):
@@ -101,10 +154,22 @@ def _k6_rounding(q, k, v, g, lse, dsum, scale):
     return torch.einsum("bqk,bkd->bqd", _bf16(ds), k)
 
 
-@pytest.mark.parametrize("seq", [256, 1024])
-def test_k4_bf16_rounding_within_the_card_tolerance(seq):
-    q, k, v, _ = _inputs(20 + seq, 2, seq)
-    scale = D ** -0.5
+@pytest.mark.parametrize("bh,seq,d", [
+    pytest.param(2, 256, 512, id="256"),    # 4 tiles, no split
+    pytest.param(2, 1024, 512, id="1024"),  # 4 key splits of 4 tiles
+    pytest.param(8, 1024, 512, id="8-1024-512"),  # no split, 16 tiles
+    pytest.param(2, 100, 512, id="2-100-512"),    # ragged, 2 tiles
+    pytest.param(8, 256, 128, id="8-256-128"),    # 2 tiles of 128 keys
+    pytest.param(2, 100, 128, id="2-100-128"),    # ragged, one tile
+    pytest.param(8, 16, 256, id="8-16-256"),      # under one tile
+    pytest.param(2, 300, 256, id="2-300-256"),    # ragged, 5 tiles
+    pytest.param(2, 300, 192, id="2-300-192"),    # d under its class
+    pytest.param(2, 1000, 512, id="2-1000-512"),  # ragged, 4 splits
+    pytest.param(1, 2048, 256, id="1-2048-256"),  # 8 splits of 4 tiles
+])
+def test_k4_bf16_rounding_within_the_card_tolerance(bh, seq, d):
+    q, k, v, _ = _inputs(20 + seq + d, bh, seq, d)
+    scale = d ** -0.5
     jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
     ref = attention_xla(jq, jk, jv, scale)
     ref_lse = logsumexp(jnp.einsum("bqd,bkd->bqk", jq, jk) * scale, axis=-1)
@@ -154,6 +219,102 @@ def test_k6_bf16_rounding_within_the_card_tolerance(seq):
     assert _rel(plain_dq, ref_dq) <= TOL_EXACT
 
 
+# (bh, seq, head_dim) of K4 on the paths (PERF.md section 6) and ragged
+# sizes: seq past no tile edge, head_dims under their class's width
+PLAN_SHAPES = [(1, 16384, 256), (8, 256, 128), (2, 1024, 512),
+               (2, 4096, 512), (8, 1024, 512), (8, 256, 512), (8, 64, 512),
+               (8, 16, 256), (8, 4096, 512), (3, 100, 64), (2, 100, 80),
+               (2, 300, 192), (2, 130, 384), (1, 77, 16), (5, 1000, 512),
+               (64, 4096, 128)]
+
+
+def _covered(ranges, seq):
+    """Whether sorted half-open ranges tile [0, seq) without overlap."""
+    at = 0
+    for a, b in sorted(ranges):
+        if a != at or b <= a:
+            return False
+        at = b
+    return at == seq
+
+
+@pytest.mark.parametrize("bh,seq,d", PLAN_SHAPES)
+def test_k4_plan_covers_every_query_key_pair_once(bh, seq, d):
+    """The blocks of the launch (query tile, head, key split) give each
+    head's query rows to exactly one tile, and each (head, query tile) the
+    key tiles of [0, seq) exactly once over its splits, in key order."""
+    p = plan_mirror.fwd_plan(bh, seq, d)
+    blocks = plan_mirror.blocks_of(bh, seq, d)
+    assert len(blocks) == p["q_tiles"] * bh * p["splits"]
+    assert p["splits"] <= plan_mirror.MAX_SPLITS
+    by_tile = {}
+    for h, rows, keys, z in blocks:
+        assert keys, "every split runs at least one key tile"
+        by_tile.setdefault((h, rows), []).append((z, keys))
+    for h in range(bh):
+        rows = [r for hh, r in by_tile if hh == h]
+        assert _covered(rows, seq)
+    for (h, rows), splits in by_tile.items():
+        assert sorted(z for z, _ in splits) == list(range(p["splits"]))
+        ranges = [r for _, keys in sorted(splits) for r in keys]
+        assert ranges == sorted(ranges)  # split z's keys precede z + 1's
+        assert _covered(ranges, seq)
+    # a split only where the blocks fill at most half of the SMs
+    assert (p["splits"] > 1) <= (2 * p["q_tiles"] * bh <= plan_mirror.SMS)
+
+
+def test_k4_every_head_dim_has_an_instantiated_class():
+    """Each head_dim the wrapper takes (a multiple of 16, at most 512) maps
+    to a class at least as wide, and csrc/attention.cu instantiates exactly
+    the mirror's classes, in BF16_TILES' order."""
+    with open(os.path.join(_build.CSRC_DIR, "attention.cu")) as f:
+        src = f.read()
+    launched = re.findall(
+        r"case (\d+): return launch_class<(\d+), (\d+), (true|false)>",
+        src)
+    launched += re.findall(
+        r"(default): return launch_class<(\d+), (\d+), (true|false)>", src)
+    dcs = tuple(int(dc) for _, dc, _, _ in launched)
+    bks = tuple(int(bk) for _, _, bk, _ in launched)
+    assert dcs == plan_mirror.CLASS_DC and bks == plan_mirror.CLASS_BK
+    rows = tuple(64 if split == "true" else 128
+                 for _, _, _, split in launched)
+    assert rows == plan_mirror.CLASS_ROWS
+    for name, values in (("kClassBK", plan_mirror.CLASS_BK),
+                         ("kClassRows", plan_mirror.CLASS_ROWS)):
+        m = re.search(name + r"\[kClasses\] = \{([^}]*)\}", src)
+        assert tuple(int(x) for x in m.group(1).split(",")) == values
+    assert attention.BF16_TILES == tuple(
+        f"<{dc},{bk}>" for dc, bk in zip(dcs, bks)) + ("merge",)
+    assert f"g_fwd_launches[kClasses + 1]" in src
+    assert len(plan_mirror.CLASS_DC) == 4 and "kClasses = 4;" in src
+    for d in range(16, attention.MAX_HEAD_DIM + 1, 16):
+        cls = plan_mirror.head_dim_class(d)
+        assert d <= plan_mirror.CLASS_DC[cls]
+        assert cls == 0 or d > plan_mirror.CLASS_DC[cls - 1]
+
+
+def test_k4_merge_order_is_fixed():
+    """The merge folds the splits in index order (the kernel's loops over
+    z ascend); the emulated merge of the same partials gives the same bits
+    every time, and another order gives other bits: the order is part of
+    the result, which is why it is fixed."""
+    with open(os.path.join(_build.CSRC_DIR, "attention.cu")) as f:
+        src = f.read()
+    merge = src[src.index("flash_merge_kernel(const float"):]
+    merge = merge[:merge.index("\n}\n")]
+    assert merge.count("for (int z = 0; z < splits; ++z)") == 3
+    assert "atomic" not in merge
+    q, k, v, _ = _inputs(7, 2, 1024, D)
+    parts = _k4_partials(q, k, v, D ** -0.5)
+    assert len(parts) == plan_mirror.fwd_plan(2, 1024, D)["splits"] == 4
+    a, b = _k4_merge(parts), _k4_merge(parts)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    c = _k4_merge(parts[::-1])
+    assert not torch.equal(a[0], c[0])
+    assert _rel(c[0], a[0]) <= TOL_EXACT
+
+
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
             "long long": ctypes.c_longlong}
 
@@ -194,6 +355,16 @@ def test_k1_tile_order_matches_the_library():
         conv_fused.BF16_TILES)
     assert f"g_tile_launches[{len(conv_fused.BF16_TILES)}]" in src
     assert f"return {len(conv_fused.BF16_TILES)};" in src
+
+
+def test_k4_tile_order_matches_the_library():
+    with open(os.path.join(_build.CSRC_DIR, "attention.cu")) as f:
+        src = f.read()
+    assert "return kClasses + 1;" in src
+    assert "g_fwd_launches[kClasses].fetch_add" in src  # the merge, last
+    for i in range(4):
+        assert re.search(rf"case {i}: return launch_class<" if i < 3 else
+                         r"default: return launch_class<", src)
 
 
 def test_bwd_launcher_refuses_g_in_another_dtype():

@@ -27,6 +27,7 @@ import torch
 
 from sr3_tpu_torch.models.unet import UNet
 from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
+import torch_port_attention_plan as plan_mirror
 
 pytestmark = pytest.mark.gpu
 CL = torch.channels_last
@@ -282,23 +283,58 @@ def test_k3_rejects_what_it_does_not_take(gen):
     assert groupnorm.stats_counter.n == n
 
 
+# K4 shapes: every bf16 class <DC, BK> with and without a key split, a
+# ragged seq, and head_dims under their class's width (80, 192, 16, 384)
+K4_CASES = [(2, 256, 512), (2, 64, 512), (3, 100, 64), (8, 256, 128),
+            (8, 16, 256), (2, 100, 80), (2, 300, 192), (1, 77, 16),
+            (2, 130, 384), (2, 1024, 512), (8, 1024, 512), (4, 700, 128),
+            (2, 1000, 512), (1, 2048, 256)]
+
+
+def _k4_launched(bh, seq, d):
+    """K4's bf16 launches the mirror's plan expects for one call."""
+    p = plan_mirror.fwd_plan(bh, seq, d)
+    want = {name: 0 for name in attention.BF16_TILES}
+    want[attention.BF16_TILES[p["cls"]]] = 1
+    want["merge"] = int(p["splits"] > 1)
+    return want
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,seq,d", [(2, 256, 512), (2, 64, 512),
-                                      (3, 100, 64)])
+@pytest.mark.parametrize("bh,seq,d", K4_CASES)
 def test_k4_matches_plain(gen, dtype, bh, seq, d):
     q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=gen)
                .to(dtype) for _ in range(3))
     n = attention.counter.n
+    attention.bf16_tile_launches(reset=True)
     out = attention.attention(q, k, v, d ** -0.5)
     assert attention.counter.n == n + 1 and out.dtype == torch.float32
+    launched = attention.bf16_tile_launches(reset=True)
+    if dtype == torch.bfloat16:
+        assert launched == _k4_launched(bh, seq, d)
+    else:
+        assert not any(launched.values())
     ref = attention.attention_plain(q, k, v, d ** -0.5)
     assert rel(out, ref) <= TOL[dtype]["k4"]
+    # a key split merges in a fixed order: two calls give the same bits
+    assert torch.equal(out, attention.attention(q, k, v, d ** -0.5))
+
+
+def test_k4_plan_matches_the_cpu_emulation(gen):
+    """The C library's plan is the one tests/torch_port_attention_plan.py
+    mirrors, on this card's SM count."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bh, seq, d in K4_CASES + [(8, 4096, 512), (2, 4096, 512),
+                                  (1, 16384, 256), (8, 64, 512)]:
+        assert attention.fwd_plan(bh, seq, d) == plan_mirror.fwd_plan(
+            bh, seq, d, sms), (bh, seq, d)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,seq,d", [(4, 256, 512), (4, 64, 512),
                                       (3, 100, 64), (2, 4096, 512),
-                                      (1, 16384, 256)])
+                                      (1, 16384, 256), (8, 256, 128),
+                                      (2, 300, 192), (2, 100, 80)])
 def test_k4_lse_k5_k6_match_plain(gen, dtype, bh, seq, d):
     q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=gen)
                .to(dtype) for _ in range(3))
