@@ -21,15 +21,17 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
      shared memory; K4 (each bf16 check labelled with the head_dim class
      it launched, and the merge of a key split), its logsumexp and
      the backward
-     kernels K5 / K6 at the training shapes, a ragged one and a ragged key
-     split; the autograd
+     kernels K5 / K6 at the training shapes, a ragged one and a ragged
+     split (each bf16 check labelled with the K5 / K6 classes it launched
+     and the merge of a split); the autograd
      Functions of K1, K2 and K4 against autograd of their plain versions,
      every input gradient; then the GroupNorm launches: device kernels per
      call from torch.profiler (K2: 1; K1: 2, its statistics and its conv),
      two calls on the same input bit-identical, K1's ticket counters back
      at 0, and the C library's plan (cluster size, channel block,
      residency) printed for every K2 site; then "K4 classes": every bf16
-     K4 class and the merge checked;
+     K4 class and the merge checked, and "K5/K6 classes": every bf16 K5
+     and K6 class and their merge checked;
   4. full-width model: the 97.8M-parameter SR3 16->128 UNet (random seeded
      weights), one float32 forward on the card (kernels) against the same
      weights on the CPU (plain versions), and the bf16 sampling copy of the
@@ -64,9 +66,10 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      input gradients;
  11. long-sequence attention: K4 with its logsumexp, K5 and K6 against the
      plain versions at 4096 and 1024 tokens (head_dim 512; batch*heads 2
-     and 8) and at 16384 tokens (head_dim 256); the bf16 K4 autograd
-     Function at 4096 and 16384 tokens; then "K4 classes": every bf16 K4
-     class launched since phase 3 was checked;
+     and 8), at 16384 tokens (head_dim 256) and at the 16->128 train
+     step's 256 and 64 tokens at batch 4 and 16 (LONG_SHAPES); the bf16 K4
+     autograd Function at 4096 and 16384 tokens; then "K4 classes" and
+     "K5/K6 classes": every bf16 class launched since phase 3 was checked;
  12. 64->512 training path: the full-width train-phase Trainer (70.0M
      parameters, batch 2, bf16, dropout 0.2, remat) through train_loop for
      TRAIN_STEPS_512 steps; counters zeroed just before; K1-K6 launched, K3
@@ -122,9 +125,12 @@ model at batches 2, 4 and 8, and K4-K6 at (b, 256, 128) and (b, 16, 256)):
      run_uncond of 2 samples, bf16, T=10, every forward kernel launched;
      for sample_ddpm_128 NEW_TRAIN_STEPS train steps and the median ms of a
      batch-8 UNet step with a torch.profiler window (device ops per step);
- 22. sample_ddpm_128 kernel timing: K4-K6 at (8, 256, 128) and
-     (8, 16, 256), K1 at 8x512x4^2->256, each beside its plain version,
-     SDPA (or cuDNN's conv alone) and its bound.
+ 22. sample_ddpm_128 kernel timing: K5 and K6 at (8, 256, 128) and
+     (8, 16, 256) checked against the plain version, then K4-K6 there and
+     K1 at 8x512x4^2->256 timed, each beside its plain version, SDPA (or
+     cuDNN's conv alone) and its bound; then "K5/K6 classes": every bf16
+     K5 / K6 class launched since phase 11 was checked (and at the end of
+     the run, every one since phase 22).
 The SR3 128->1024 cascade stage (configs/sr_sr3_128_1024.json: 91.6M
 parameters, six levels, attention at 32x32, remat, dropout 0.2; phase 3
 also checks K1 at every site of its UNet at batches 2 and 8, K2 at its
@@ -359,9 +365,12 @@ K3_LARGE = [(8, 128, 1024, 1024)]
 K3_TOL = 1e-5
 # (batch*heads, seq, head_dim): the 64->512 path's 64x64 and 32x32
 # attention, 16384 tokens (attention at 128x128 on that model), the
-# 1024-token serving batch and the 4096-token one of the 512^2 serving step
+# 1024-token serving batch and the 4096-token one of the 512^2 serving
+# step, and the 16->128 train step's attention at its batch 4 and at the
+# bench's 16 (phases 11 and 17 check and time each)
 LONG_SHAPES = [(2, 4096, 512), (2, 1024, 512), (1, 16384, 256),
-               (8, 1024, 512), (8, 4096, 512)]
+               (8, 1024, 512), (8, 4096, 512), (4, 256, 512), (4, 64, 512),
+               (16, 256, 512), (16, 64, 512)]
 # remat on against remat off, float32, same seed and dropout draws, cuDNN's
 # deterministic algorithms: the same operations on the same values
 REMAT_TOL = 1e-5
@@ -426,7 +435,7 @@ RESIDENT_K = 4
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # name: (source, the TPU kernel it replaces, route by input dtype)
-FMA, MMA = "float32 FMA", "bf16 mma.sync tensor cores, float32 accumulate"
+FMA = "float32 FMA"
 WGMMA = ("bf16 wgmma tensor cores (A by ldmatrix from registers, B by "
          "shared-memory descriptor), float32 accumulate, cp.async weight "
          "ring and halo")
@@ -436,6 +445,14 @@ K4_WGMMA = ("bf16 wgmma tensor cores (S = Q K^T by shared-memory "
             "under mbarriers from one producer warp; a class per head_dim "
             "(attention.BF16_TILES); below half a wave of blocks a key "
             "split merged in a fixed order by a second launch")
+K56_WGMMA = ("bf16 wgmma tensor cores (S and dP, or their transposes, by "
+             "shared-memory descriptors; P and dS from registers times dO, "
+             "Q or K by a transposed descriptor), float32 accumulate; the "
+             "resident pair loaded once and the streamed pair through a "
+             "ring by TMA under mbarriers from one producer warp; a class "
+             "per head_dim (attention.BWD_TILES); below a quarter wave of "
+             "blocks a split of the streamed tiles added in a fixed order "
+             "by a second launch")
 GN_CLUSTER = ("one launch: a thread-block cluster per (image, channel "
               "block), 16-byte loads, the range resident in shared memory, "
               "sums folded through distributed shared memory in rank order, "
@@ -452,12 +469,10 @@ KERNELS = {
                             {"float32": FMA, "bfloat16": K4_WGMMA}),
     "flash_attention_bwd_dkv": ("sr3_tpu_torch/csrc/attention_bwd.cu",
                                 "sr3_tpu/ops/attention.py:163",
-                                {"float32": FMA,
-                                 "bfloat16": MMA + ", cp.async"}),
+                                {"float32": FMA, "bfloat16": K56_WGMMA}),
     "flash_attention_bwd_dq": ("sr3_tpu_torch/csrc/attention_bwd.cu",
                                "sr3_tpu/ops/attention.py:203",
-                               {"float32": FMA,
-                                "bfloat16": MMA + ", cp.async"}),
+                               {"float32": FMA, "bfloat16": K56_WGMMA}),
     "gn_stats": ("sr3_tpu_torch/csrc/gn_stats.cu",
                  "sr3_tpu/ops/groupnorm.py:66",
                  {"float32": FMA, "bfloat16": FMA}),
@@ -666,6 +681,7 @@ def kernel_phase(torch, errs):
             k2_cases += [(b, c, h, h, groups, swish) for c, h, swish in sites
                          if (b, c, h, h, groups, swish) not in k2_cases]
     checked_tiles, checked_clusters, checked_k4 = set(), set(), set()
+    checked_bwd = set()
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for b, cin, cout, hw in k1_cases:
@@ -720,8 +736,10 @@ def kernel_phase(torch, errs):
                   label + " with lse: lse", lse, ref_lse,
                   tol=TOL[dn]["flash_attention_lse"])
             dsum = (gr * o).sum(-1)
+            attention.bwd_tile_launches(reset=True)
             dq, dk, dv = attention.attention_bwd(q, k, v, gr, lse, dsum,
                                                  d ** -0.5)
+            label += bwd_classes(checked_bwd)
             rq, rk, rv = attention.attention_bwd_plain(q, k, v, gr, lse, dsum,
                                                        d ** -0.5)
             record("flash_attention_bwd_dkv", dn, label + ": dk", dk, rk)
@@ -730,8 +748,10 @@ def kernel_phase(torch, errs):
         for name, call, wrapper, plain, inputs in _function_cases(
                 torch, g, dtype):
             attention.bf16_tile_launches(reset=True)
+            attention.bwd_tile_launches(reset=True)
             grads = function_grads(torch, call, wrapper, plain, inputs)
             k4_classes(checked_k4)
+            bwd_classes(checked_bwd)
             for i, (got, ref) in enumerate(zip(*grads)):
                 record_fn(name, dn, i, got, ref)
     if failures:
@@ -740,7 +760,8 @@ def kernel_phase(torch, errs):
     conv_fused.bf16_tile_launches(reset=True)
     groupnorm.cluster_launches(reset=True)
     attention.bf16_tile_launches(reset=True)
-    return checked_tiles, checked_clusters, checked_k4
+    attention.bwd_tile_launches(reset=True)
+    return checked_tiles, checked_clusters, checked_k4, checked_bwd
 
 
 @phase("K1 tiles")
@@ -756,31 +777,58 @@ def k1_tile_phase(checked):
                              f"{sorted(set(taken) - checked)}")
 
 
-def k4_classes(checked):
-    """The bf16 K4 classes (and the merge) launched since the last reset,
-    added to ``checked``, as a label for the check that launched them."""
-    from sr3_tpu_torch.ops import attention
-
-    taken = [t for t, n in attention.bf16_tile_launches().items() if n]
+def launched_classes(launches, checked):
+    """The bf16 classes (and merges) a tile-launch reader (``launches``:
+    ``attention.bf16_tile_launches`` for K4, ``attention.bwd_tile_launches``
+    for K5 / K6) counted since its last reset, added to ``checked``, as a
+    label for the check that launched them."""
+    taken = [t for t, n in launches().items() if n]
     checked.update(taken)
     return " class " + ",".join(taken) if taken else ""
 
 
-@phase("K4 classes")
-def k4_class_phase(checked, since):
-    """Fail unless every bf16 K4 class and the merge was checked against
-    the plain version (phases 3 and 11), and every one launched since the
-    last reading was among them; then set the counts to 0."""
+def k4_classes(checked):
     from sr3_tpu_torch.ops import attention
 
-    taken = {t: n for t, n in attention.bf16_tile_launches(reset=True)
-             .items() if n}
-    print(f"  bf16 K4 launches by class since {since}: {taken}; checked: "
-          f"{sorted(checked)}", flush=True)
-    missing = set(attention.BF16_TILES) - checked
+    return launched_classes(attention.bf16_tile_launches, checked)
+
+
+def bwd_classes(checked):
+    from sr3_tpu_torch.ops import attention
+
+    return launched_classes(attention.bwd_tile_launches, checked)
+
+
+def _classes_checked(what, launches, tiles, checked, since):
+    """Fail unless every bf16 class of ``tiles`` (and the merge) was
+    checked against the plain version, and every one launched since the
+    last reading was among them; then set the counts to 0."""
+    taken = {t: n for t, n in launches(reset=True).items() if n}
+    print(f"  bf16 {what} launches by class since {since}: {taken}; "
+          f"checked: {sorted(checked)}", flush=True)
+    missing = set(tiles) - checked
     if missing or set(taken) - checked:
-        raise AssertionError(f"bf16 K4 classes not checked: "
+        raise AssertionError(f"bf16 {what} classes not checked: "
                              f"{sorted(missing | (set(taken) - checked))}")
+
+
+@phase("K4 classes")
+def k4_class_phase(checked, since):
+    """Every bf16 K4 class and the merge checked (phases 3 and 11)."""
+    from sr3_tpu_torch.ops import attention
+
+    _classes_checked("K4", attention.bf16_tile_launches,
+                     attention.BF16_TILES, checked, since)
+
+
+@phase("K5/K6 classes")
+def bwd_class_phase(checked, since):
+    """Every bf16 K5 and K6 class and the merge checked (phases 3, 11 and
+    22)."""
+    from sr3_tpu_torch.ops import attention
+
+    _classes_checked("K5 / K6", attention.bwd_tile_launches,
+                     attention.BWD_TILES, checked, since)
 
 
 @phase("K2 clusters")
@@ -1441,7 +1489,7 @@ def long_attention_phase(torch, errs):
     from sr3_tpu_torch.ops import attention
 
     g = torch.Generator(device="cuda").manual_seed(11)
-    failures, checked = [], set()
+    failures, checked, checked_bwd = [], set(), set()
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for bh, seq, d in LONG_SHAPES:
@@ -1460,7 +1508,9 @@ def long_attention_phase(torch, errs):
                   tol=TOL[dn]["flash_attention_lse"])
             del ref_o, ref_lse
             dsum = (gr * o).sum(-1)
+            attention.bwd_tile_launches(reset=True)
             dq, dk, dv = attention.attention_bwd(q, k, v, gr, lse, dsum, scale)
+            label += bwd_classes(checked_bwd)
             rq, rk, rv = attention.attention_bwd_plain(q, k, v, gr, lse, dsum,
                                                        scale)
             check(torch, errs, failures, "flash_attention_bwd_dkv", dn,
@@ -1476,9 +1526,11 @@ def long_attention_phase(torch, errs):
     for bh, seq, d in (LONG_SHAPES[0], LONG_SHAPES[2]):
         inputs = [torch.randn(bh, seq, d, device="cuda", generator=g)
                   .to(torch.bfloat16) for _ in range(3)]
+        attention.bwd_tile_launches(reset=True)
         grads = function_grads(torch, lambda f, t: f(*t, d ** -0.5),
                                attention.attention, attention.attention_plain,
                                inputs)
+        bwd_classes(checked_bwd)
         for i, (got, ref) in enumerate(zip(*grads)):
             check_grad(torch, failures, f"attention {bh}x{seq}x{d}",
                        "bfloat16", i, got, ref)
@@ -1487,7 +1539,7 @@ def long_attention_phase(torch, errs):
     if failures:
         raise AssertionError(f"long-sequence attention disagrees with the "
                              f"plain versions: {failures}")
-    return checked
+    return checked, checked_bwd
 
 
 def k3_shapes(torch, config):
@@ -2497,18 +2549,19 @@ def val_phase(torch, trainer, results):
 
 
 @phase("sample_ddpm_128 kernel timing")
-def kernel_timing_ddpm_128_phase(torch):
+def kernel_timing_ddpm_128_phase(torch, errs, checked_bwd):
     """At BATCH_TIME, bf16: K4 (with its logsumexp), K5 and K6 at the
     six-level model's attention (8, 256, 128) (16x16 at C 128) and
-    (8, 16, 256) (the 4x4 mid block), and K1 at its 4x4 up-path site
-    8x512x4^2->256 (+FiLM+residual), each beside its plain version, the
-    library call where there is one (SDPA; beside K1 cuDNN's conv alone,
-    not the same function) and its bound."""
+    (8, 16, 256) (the 4x4 mid block), first checked against the plain
+    versions (the K5 / K6 classes they launch added to ``checked_bwd``),
+    and K1 at its 4x4 up-path site 8x512x4^2->256 (+FiLM+residual), each
+    beside its plain version, the library call where there is one (SDPA;
+    beside K1 cuDNN's conv alone, not the same function) and its bound."""
     import functools
 
     import torch.nn.functional as F
 
-    from sr3_tpu_torch.ops import conv_fused
+    from sr3_tpu_torch.ops import attention, conv_fused
 
     g = torch.Generator(device="cuda").manual_seed(27)
     out = {}
@@ -2534,6 +2587,25 @@ def kernel_timing_ddpm_128_phase(torch):
     print(f"  cuDNN F.conv2d alone {b}x{cin}x{hw}x{hw}->{cout}, ms (events "
           f"/ device): {alone['cudnn_conv_alone_ms']:.4f} / "
           f"{_show(alone['cudnn_conv_alone_device_ms'])}", flush=True)
+    failures = []
+    for _, seq, d in BWD_SHAPES_DDPM_128:
+        q, k, v = (torch.randn(b, seq, d, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(3))
+        gr = torch.randn(b, seq, d, device="cuda", generator=g)
+        o, lse = attention.attention_fwd(q, k, v, d ** -0.5)
+        dsum = (gr * o).sum(-1)
+        attention.bwd_tile_launches(reset=True)
+        grads = attention.attention_bwd(q, k, v, gr, lse, dsum, d ** -0.5)
+        label = f"{b}x{seq}x{d}" + bwd_classes(checked_bwd)
+        refs = attention.attention_bwd_plain(q, k, v, gr, lse, dsum,
+                                             d ** -0.5)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            check(torch, errs, failures, "flash_attention_bwd_"
+                  + ("dq" if name == "dq" else "dkv"), "bfloat16",
+                  f"{label}: {name}", got, ref)
+    if failures:
+        raise AssertionError(f"K5 / K6 disagree with the plain version: "
+                             f"{failures}")
     for _, seq, d in BWD_SHAPES_DDPM_128:
         _attention_entries(torch, g, entry, b, seq, d)
     return out
@@ -4261,9 +4333,10 @@ def main():
         build_phase()
         errs = {}
         # the SR3 16->128 serving and training paths
-        checked_tiles, checked_clusters, checked_k4 = kernel_phase(torch,
-                                                                   errs)
+        checked_tiles, checked_clusters, checked_k4, checked_bwd = \
+            kernel_phase(torch, errs)
         k4_class_phase(checked_k4, "phase 3")
+        bwd_class_phase(checked_bwd, "phase 3")
         gn_launch_phase(torch)
         trainer = model_phase(torch)
         serving = serving_phase(torch, trainer)
@@ -4286,8 +4359,11 @@ def main():
         torch.cuda.empty_cache()
         # the SR3 64->512 training path, and its serving path
         k3_phase(torch, errs)
-        checked_k4 |= long_attention_phase(torch, errs)
+        long_k4, long_bwd = long_attention_phase(torch, errs)
+        checked_k4 |= long_k4
+        checked_bwd |= long_bwd
         k4_class_phase(checked_k4, "phase 3")
+        bwd_class_phase(checked_bwd, "phase 3")
         trainer, launches = training_512_phase(torch)
         grad_check_512_phase(torch)
         bf16_attention_grad_phase(torch)
@@ -4299,7 +4375,9 @@ def main():
         # the rest of the sampling surface: ddpm, unconditional
         ddpm = ddpm_phase(torch)
         uncond = uncond_phase(torch)
-        timings_ddpm_128 = kernel_timing_ddpm_128_phase(torch)
+        timings_ddpm_128 = kernel_timing_ddpm_128_phase(torch, errs,
+                                                        checked_bwd)
+        bwd_class_phase(checked_bwd, "phase 11")
         # the 128->1024 stage, the cascade, the bf16 first moment and the
         # device-resident dataset
         model_1024_phase(torch)
@@ -4319,6 +4397,7 @@ def main():
         k1_tile_phase(checked_tiles)
         k2_cluster_phase(checked_clusters)
         k4_class_phase(checked_k4, "phase 17")
+        bwd_class_phase(checked_bwd, "phase 22")
         # the parallel paths (two ranks) and K1's halo entry
         par, backend = parallel_phase(torch)
         timings["gn_silu_conv3x3_halo"] = halo_timing_phase(torch)

@@ -52,7 +52,7 @@
 //      named barriers (a + b == b + a: both hold the same S and run the
 //      same softmax). Computing the whole S in both warpgroups instead
 //      (1.5x the operations of the two products, no exchange) measured
-//      slower (sr3_tpu_torch/k4_variants.py, variant "recompute"). Below
+//      slower (sr3_tpu_torch/attention_variants.py k4 "recompute"). Below
 //      512 each warpgroup owns its 64 rows and all of O's columns.
 //   4. Grids under one wave. Where the blocks of a call (query tiles x BH)
 //      fill at most half of the SMs, the keys are split (fwd_plan) into
@@ -60,7 +60,7 @@
 //      [z*per, (z+1)*per) and writes its unnormalised O, m and l to the
 //      workspace; flash_merge_kernel then merges the splits in index order
 //      (no atomics: two calls give the same bits). Splits of 1 or 2 tiles
-//      measured slower than none (k4_variants.py "split_per1",
+//      measured slower than none (attention_variants.py k4 "split_per1",
 //      "split_per2": the merge launch and the partial O's round trip cost
 //      more than the blocks gain); 2x1024x512 splits in 4.
 //   5. Copies issued by all 256 threads. Now one producer warp issues TMA
@@ -88,7 +88,6 @@
 //   products in float32 and l sums the unrounded P, so only the order of
 //   float32 sums differs. sr3_flash_attention_fwd_tiles counts the
 //   launches of each class and of the merge.
-#include <cuda.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -568,51 +567,6 @@ long long workspace_floats(const FwdPlan& p, int BH, int S, int D) {
   return p.splits > 1 ? (long long)p.splits * BH * S * (D + 2) : 0;
 }
 
-// cuTensorMapEncodeTiled from the driver, found once through the runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static std::atomic<void*> fn{nullptr};
-  void* f = fn.load(std::memory_order_acquire);
-  if (f == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn.store(f, std::memory_order_release);
-  }
-  return reinterpret_cast<EncodeTiled>(f);
-}
-
-// A (BH, S, D) bf16 tensor as a 3-D tensor map (D innermost) read in boxes
-// of 64 columns x `rows` rows of one head, 128-byte swizzled; reads past D,
-// S or BH fill zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, int BH, int S, int D,
-                int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct FwdArgs {
   const void *q, *k, *v;
   float *o, *lse, *ws;
@@ -630,9 +584,9 @@ cudaError_t launch_class(const FwdArgs& a, const FwdPlan& p,
   cudaError_t err = sr3::raise_smem_limit(limit, (const void*)kernel, T::kSmem);
   if (err != cudaSuccess) return err;
   CUtensorMap qmap, kmap, vmap;
-  if (!encode_map(&qmap, a.q, a.BH, a.S, a.D, T::kRows) ||
-      !encode_map(&kmap, a.k, a.BH, a.S, a.D, BK) ||
-      !encode_map(&vmap, a.v, a.BH, a.S, a.D, BK))
+  if (!sr3::encode_map(&qmap, a.q, a.BH, a.S, a.D, T::kRows) ||
+      !sr3::encode_map(&kmap, a.k, a.BH, a.S, a.D, BK) ||
+      !sr3::encode_map(&vmap, a.v, a.BH, a.S, a.D, BK))
     return cudaErrorInvalidValue;
   const dim3 grid(p.q_tiles, a.BH, p.splits);
   kernel<<<grid, kWThreads, T::kSmem, st>>>(

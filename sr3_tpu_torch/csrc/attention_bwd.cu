@@ -31,62 +31,107 @@
 // both sides widen the same inputs to float32 and keep P, dS and the
 // accumulators in float32; only the order of the float32 sums differs.
 //
-// K5's bfloat16 route: the tensor cores (mma.sync m16n8k16, bf16 ->
-// float32). A block of 8 warps owns 32 keys; its K and V tiles stay in
-// shared memory as bf16, and 32-query tiles of Q and dO stream through a
-// two-stage ring filled with 16-byte cp.async copies (the next tile's copy
-// overlaps this tile's products; one __syncthreads per tile); lse and dsum
-// of a thread's 8 query columns come straight from global memory. dO
-// arrives in bf16: the wrapper rounds the float32 output gradient once, for
-// K5 and K6 alike (dsum still comes from the float32 one). Staged rows are
-// padded to D + 8 bf16, so ldmatrix reads are free of bank conflicts.
-//   Products: S^T = K Q^T and dP^T = V dO^T (16 keys x 32 queries per warp),
-// then P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - dsum) * scale in
-// float32 registers; P^T and dS^T are rounded to bf16 and used directly as
-// the A operands (the m16n8 C layout is the m16n8k16 A layout) of
-// dV += P^T dO and dK += dS^T Q, whose B fragments come from ldmatrix.trans
-// of the same dO and Q tiles.
-//   Register budget: dK and dV for 16 keys x 512 columns would be 512
-// registers a thread in one warp, so the accumulator columns are split: warp
-// w owns key group w / 4 (16 keys) and the w % 4-th quarter of the 8-column
-// tiles of both dK and dV (16 keys x 128 columns each at D = 512: 128
-// registers). S^T and dP^T are split-d partial products: each of the four
-// warps of a key group multiplies its quarter of D, and the partials are
-// summed through shared memory (2 KB per warp, used first for S^T then for
-// dP^T, with named barriers of the group's 128 threads), in the same order
-// in every warp, so the four hold identical P^T and dS^T.
-//   Shared memory at D = 512: K and V 2 x 32 x 520 bf16 (66,560 B) + the
-// ring 2 x (Q, dO) x 32 x 520 bf16 (133,120 B) + partials 8 x 2 KB =
-// 216,064 B: one block of 256 threads per SM, (S / 32) * BH blocks (256 at
-// (2, 4096, 512)).
-//   Tolerance against the plain version: dK and dV within 2e-2 of
-// max|plain| -- dO, P and dS are rounded to bf16 (2^-9 relative) before
-// their products, as FlashAttention does; the plain version and the TPU
-// kernel (which widens every operand to float32) keep them in float32.
-//
-// K6's bfloat16 route: K5's design with the roles of queries and keys
-// swapped (flash_bwd_dq_mma_kernel below). A block of 8 warps owns 32
-// queries, whose Q and dO rows stay in shared memory; 32-key tiles of K and
-// V stream through the same two-stage cp.async ring, one __syncthreads per
-// tile. S = Q K^T and dP = dO V^T are split-d partials summed by group_sum;
-// P = exp(S * scale - lse) and dS = P (dP - dsum) * scale in float32
-// registers (the scale applied after the product), dS rounded to bf16 as
-// the A operand of dQ += dS K, whose B fragments come from ldmatrix.trans of
-// the K tile. Three products per key tile against K5's four; the same
-// 216,064 B of shared memory at D = 512 (Q, dO 66,560 B, the K / V ring
-// 133,120 B, partials 16 KB); (S / 32) * BH blocks, so at (2, 1024, 512)
-// its 64 blocks leave half of the card's 132 SMs idle (a split over keys
-// would need a second reduction pass to stay free of atomics). Bound as
-// K5: 6*BH*S^2*D operations, 0.104 ms at (2, 4096, 512) on the tensor
-// cores; in practice the fragment loads from shared memory and the group
-// sums set the pace, as in K4 and K5.
-//   Tolerance: dQ within 2e-2 of max|plain| -- dO and dS are rounded to bf16
-// before their products, which neither the plain version nor the TPU kernel
-// does (1e-4 while K6 computed in float32; the float32 route stays at 1e-4).
+// bfloat16 routes of K5 and K6: flash_bwd_wgmma_kernel, one kernel
+// template for Hopper with one instantiation per (kernel, head_dim class),
+// and flash_bwd_merge_kernel after a split. The two stay two kernels, as on
+// the TPU: a fused backward that adds dQ across key blocks by atomics would
+// change its sums' order from run to run. Both kernels have one shape: a
+// block keeps `rows` resident rows (K5: K and V; K6: Q and dO) and streams
+// tiles of BN rows of the other pair (K5: Q and dO; K6: K and V); per tile
+// X = R1 B1^T (S^T = K Q^T; S = Q K^T) and Y = R2 B2^T (dP^T = V dO^T;
+// dP = dO V^T), then P = exp(X * scale - lse), dS = P (Y - dsum) * scale,
+// and dV += P^T dO, dK += dS^T Q (K5) or dQ += dS K (K6). What held the
+// mma.sync kernels they replace at 3-12% of their bounds, and
+// what this design does about each:
+//   1. Pre-Hopper products (mma.sync from single warps, every operand
+//      through ldmatrix into registers). Now wgmma.mma_async m64nNk16 by
+//      warpgroups: X and Y read both operands from shared memory by
+//      descriptor; P and dS are formed in float32 on the accumulator
+//      fragments, rounded to bf16 in registers and are the A operands of
+//      the output products, whose B (dO, Q, K) is read MN-major by a
+//      transposed descriptor: no transposing copy.
+//   2. One tiling for every head_dim. Now a class per head_dim, DC = 64,
+//      128, 256, 512 columns (every D the wrapper takes, a multiple of 16
+//      up to 512, runs at the next class up; TMA zero-fills the columns
+//      past D, which are never stored). The register file decides the
+//      tiling: a consumer warpgroup's 64 x N float32 accumulator is N / 2
+//      registers a thread, under 232 after setmaxnreg.
+//        K5 <DC, BN, rows>: <64, 64, 128>, <128, 64, 128>: each warpgroup
+//        owns 64 keys and holds dK and dV, 2 x DC / 2 = DC registers
+//        (128 at D = 128) beside S^T and dP^T (BN / 2 each). <256, 32, 64>:
+//        dK and dV of 64 keys at D = 256 would be 256 registers, so the two
+//        warpgroups share the 64 keys and own 128 columns each (128
+//        registers). <512, 32, 64>: even split, dK and dV of 64 keys x 256
+//        columns are 256 registers a thread -- 64 keys x 512 x 2 outputs x
+//        4 B is the SM's whole 256 KB register file -- so the block makes
+//        two passes over the queries, dV then dK, each in 128 registers
+//        (1.25x the products: S^T again in the second pass). Chosen over a
+//        2-CTA cluster exchanging split-d partials through distributed
+//        shared memory (two blocks, each holding K and V, in lockstep
+//        across SMs) and over dK^T / dV^T with D as the wgmma M dimension
+//        (P and dS would have to pass through shared memory as B).
+//        K6 <DC, BN, rows>: <64, 128, 128>, <128, 64, 128>, <256, 64, 128>:
+//        each warpgroup owns 64 queries and dQ, DC / 2 registers;
+//        <512, 32, 64>: a 64 x 512 dQ tile is 256 registers, so the two
+//        warpgroups share 64 queries and own 256 columns each.
+//      Shared memory: the resident tiles (2 x rows x DC bf16: 128 KB at
+//      D = 512), rings of as many stages of the streamed pair as fit, up to
+//      4 (D = 512: one stage of 32 rows, 64 KB; K6 <256>: one stage of 64
+//      rows; K5 <256>: four of 32 -- one stage of 64 measured 2.5-5.9%
+//      slower at 16384 tokens and 19-22% at 16 in two runs on an H100 SXM,
+//      sr3_tpu_torch/attention_variants.py bwd), the exchange below,
+//      barriers; at most 230,912 B. Where S is shorter than a row tile,
+//      the resident boxes shrink to S rounded up to 8 rows (fewer
+//      zero-filled bytes: K6 at 8x16x256 0.0063 -> 0.0057 ms on the same
+//      card).
+//      Where the ring has one stage, the streamed operand the consumers
+//      release first is loaded first and used first (Y before X), so the
+//      next tile's copy overlaps the products that remain.
+//   3. Split-d partial products at every D. Now only where a warpgroup
+//      cannot hold its rows' whole output (K5 at 256 and 512, K6 at 512):
+//      each warpgroup multiplies half of D for X and Y, and the two
+//      partials are added through shared memory between named barriers
+//      (a + b == b + a: both warpgroups hold the same X and Y and form the
+//      same P and dS), as K4's <512,64> class does for S.
+//   4. Grids under one wave, nothing split. Where the blocks of a call
+//      (row tiles x BH) fill at most a quarter of the SMs, the streamed tiles
+//      are split (bwd_plan: K5 splits the queries, K6 the keys) into splits
+//      of at least kMinSplitTiles tiles (K4's measured lesson: shorter
+//      splits cost more in the merge than the blocks gain); block z runs
+//      tiles [z * per, (z + 1) * per) and writes its float32 partial sums
+//      to the workspace, and flash_bwd_merge_kernel adds them in split
+//      order (no atomics: two calls give the same bits).
+//   5. Copies issued by every thread. Now one producer warp: one thread
+//      issues TMA tiled loads (cp.async.bulk.tensor, 128-byte swizzle, the
+//      layout the descriptors read) of the resident pair once and of the
+//      streamed pair into the ring under mbarriers (full: TMA bytes landed
+//      and, in K5, the 32 lanes' lse * log2(e) and dsum of the tile's
+//      queries -- +inf and 0 past S, so P and dS are exactly 0 there;
+//      empty: the 8 consumer warps are done with the stage), the two
+//      operands with separate barriers. K6 keeps its rows' lse and dsum in
+//      registers and masks keys past S. The producer warpgroup gives its
+//      registers to the consumers (setmaxnreg 40 / 232).
+//   Bound on the card: operations. K5 8*BH*S^2*D (four products), K6
+//   6*BH*S^2*D (three): at (2, 4096, 512) 137 and 103 GFLOP, 0.139 and
+//   0.104 ms on the bf16 tensor cores, against ~0.02 ms for the bytes. K5
+//   and K6 recompute S and dP in both kernels: 14*BH*S^2*D operations
+//   against a fused backward's 10.
+//   Rounding: dO arrives in bf16 (the wrapper rounds the float32 output
+//   gradient once, for K5 and K6 alike; dsum still comes from the float32
+//   one); X and Y are sums of exact bf16 products in float32; the scale is
+//   applied after the product (in the base-2 exponent: exp2(X * scale *
+//   log2(e) - lse * log2(e))); P and dS are rounded to bf16 before their
+//   products. Tolerance against the plain version (float32 einsums): dk,
+//   dv and dq within 2e-2 of max|plain| -- dO, P and dS are rounded to
+//   bf16 (2^-9 relative), as FlashAttention does and as neither the plain
+//   version nor the TPU kernel (which widens every operand to float32)
+//   does. sr3_flash_attention_bwd_tiles counts the launches of each class
+//   and of the merge.
 //
 // ptxas (sm_90a, CUDA 12.8, as chip_smoke.py's build phase prints it):
-// flash_bwd_dkv_mma_kernel 248 registers, flash_bwd_dq_mma_kernel 195, the
-// float32 kernels 98 (dK/dV) and 74 (dQ); no spills.
+// flash_bwd_wgmma_kernel 168 registers at launch in every class (setmaxnreg
+// 40 / 232), flash_bwd_merge_kernel 40, the float32 kernels 98 (dK/dV) and
+// 74 (dQ); no spills.
 #include <math.h>
 
 #include "common.cuh"
@@ -300,376 +345,631 @@ cudaError_t dq_t(const void* q, const void* k, const void* v, const float* g,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------ K5, bfloat16 route
+
+// ------------------------------------------- K5 and K6, bfloat16 route
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMBK = 32;                 // keys per block: 2 groups of 16
-constexpr int kMBQ = 32;                 // queries per streamed tile
-constexpr int kMWarps = 8;               // 2 key groups x 4 column quarters
-constexpr int kMThreads = 32 * kMWarps;
-constexpr int kPad = 8;                  // bf16 of padding per staged row
-constexpr int kMaxNT = kDMax / 8 / 4;    // 8-column dK / dV tiles per warp
-constexpr int kPartial = 16 * kMBQ;      // floats of one warp's partial
+constexpr int kWThreads = 384;     // producer warpgroup + 2 consumer ones
+constexpr int kProducerRegs = 40;  // 128 x 40 + 256 x 232 <= 65,536
+constexpr int kConsumerRegs = 232;
+constexpr int kConsumerWarps = 8;  // arrivals that empty a ring stage
+constexpr int kSmemMax = 232448;   // shared memory a block can use
+constexpr int kMaxStages = 4;
+constexpr int kMaxSplits = 16;
+constexpr int kMinSplitTiles = 4;  // streamed tiles a split runs at least
+constexpr float kLog2e = 1.4426950408889634f;
 
-size_t dkv_mma_smem_bytes(int D) {
-  const size_t ld = D + kPad;
-  return sizeof(bf16) * (2 * kMBK + 2 * 2 * kMBQ) * ld +
-         sizeof(float) * kMWarps * kPartial;
+// What a kernel instantiation computes: K6's dQ; K5's dK and dV in one
+// pass over the query tiles; or K5 in two passes, dV then dK (D = 512).
+constexpr int kDq = 0, kDkv = 1, kDkv2 = 2;
+
+// The classes of both kernels, by head_dim: DC columns (every D <= DC runs
+// at the next class up; columns past D are zero-filled by TMA and never
+// stored), then per kernel the streamed tile (BN rows) and the resident
+// rows a block (128: each consumer warpgroup owns 64 rows and all of the
+// output's DC columns; 64: the two share 64 rows, split D for their
+// products and own DC / 2 output columns each). Counted in the order of
+// sr3_flash_attention_bwd_tiles: K5's classes, K6's, then the merge.
+constexpr int kClasses = 4;
+constexpr int kClassDC[kClasses] = {64, 128, 256, 512};
+constexpr int kDkvBN[kClasses] = {64, 64, 32, 32};
+constexpr int kDkvRows[kClasses] = {128, 128, 64, 64};
+constexpr int kDqBN[kClasses] = {128, 64, 64, 32};
+constexpr int kDqRows[kClasses] = {128, 128, 128, 64};
+std::atomic<long long> g_bwd_launches[2 * kClasses + 1];
+
+// Shared memory of an instantiation: the two resident tiles (K, V for K5;
+// Q, dO for K6), rings of kStages streamed tiles (Q, dO for K5; K, V for
+// K6), K5's column statistics of each stage ([lse * log2(e)][dsum], BN
+// floats each), the exchange of split-d partials ([warpgroup][X, Y]
+// [BN / 2][128] floats) and the barriers. Every tile is DC / 64 column
+// chunks of [rows][64] bf16 (128 bytes a row, 1024-byte aligned: the
+// 128-byte swizzle's atom).
+template <int DC, int BN, bool kSplitD, int kMode>
+struct BwdTile {
+  static constexpr int kBN = BN;
+  static constexpr bool kSplit = kSplitD;
+  static constexpr bool kColStats = kMode != kDq;
+  static constexpr int kPasses = kMode == kDkv2 ? 2 : 1;
+  static constexpr int kChunks = DC / 64;
+  static constexpr int kRows = kSplitD ? 64 : 128;
+  static constexpr int kOCols = kSplitD ? DC / 2 : DC;
+  static constexpr int kRBytes = kRows * DC * 2;  // one resident tile
+  static constexpr int kSBytes = BN * DC * 2;     // one streamed tile
+  static constexpr int kStatBytes = kColStats ? 2 * BN * 4 : 0;
+  static constexpr int kXTile = BN / 2 * 128;     // floats of one partial
+  static constexpr int kXBytes = kSplitD ? 2 * 2 * kXTile * 4 : 0;
+  static constexpr int kBarBytes = 256;
+  static constexpr int kFit =
+      (kSmemMax - 1024 - 2 * kRBytes - kXBytes - kBarBytes) /
+      (2 * kSBytes + kStatBytes);
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static_assert(kStages >= 1, "a stage of both streamed tiles must fit");
+  static_assert(8 * (1 + 4 * kStages) <= kBarBytes, "barriers");
+  static_assert(kMode == kDq || kOCols <= 128 || kMode == kDkv2,
+                "dK and dV of a warpgroup fit its registers in one pass");
+  static constexpr size_t kSmem = 1024 + 2 * (size_t)kRBytes +
+                                  (size_t)kStages * (2 * kSBytes + kStatBytes) +
+                                  kXBytes + kBarBytes;
+};
+
+// What a consumer warpgroup keeps across its tiles.
+struct BwdCtx {
+  uint32_t r1, r2, b1, b2;  // shared addresses: resident rows of this
+                            // warpgroup, the two rings
+  const float* stats;       // K5: the rings' column statistics
+  float* xs;                // the split-d exchange
+  uint64_t *b1_full, *b1_empty, *b2_full, *b2_empty;
+  int S, lane, tid, cw, tig, kk0, col0, total;
+  float c, scale;           // scale * log2(e), scale
+  float l2[2], ds[2];       // K6: lse * log2(e) and dsum of rows gid, gid + 8
+};
+
+// One tile step of a consumer warpgroup.
+constexpr int kStepDq = 0, kStepDkv = 1, kStepDv = 2, kStepDk = 3;
+
+__device__ __forceinline__ void release(const BwdCtx& x, uint64_t* empty) {
+  __syncwarp();
+  if (x.lane == 0) sr3::mbar_arrive(empty);
 }
 
-// This warp's partial (16 x 32 floats) into shared memory, a named barrier
-// of the key group, then the group's four partials summed in warp order.
-__device__ __forceinline__ void group_sum(float (*x)[4], float* mine,
-                                          const float* group, int bar) {
+// Products of one streamed tile (stage s, phase ph, tile t; `it` counts
+// the tiles of every pass). X = R1 B1^T (S^T = K Q^T in K5, S = Q K^T in
+// K6) and Y = R2 B2^T (dP^T = V dO^T, dP = dO V^T) by shared-memory
+// descriptors, Y first: its streamed operand is released first where the
+// ring has one stage. Then P = exp2(X * c - lse * log2(e)) and
+// dS = P (Y - dsum) * scale in float32 on the fragments; P rounded to bf16
+// feeds acc_p += P B2 (dV += P^T dO) and dS rounded to bf16 feeds
+// acc_ds += dS B1 (dK += dS^T Q, dQ += dS K), B1 / B2 read MN-major.
+template <class T, int kStep>
+__device__ __forceinline__ void bwd_step(const BwdCtx& x, float* acc_p,
+                                         float* acc_ds, int it, int t, int s,
+                                         uint32_t ph) {
+  constexpr int BN = T::kBN;
+  constexpr bool kSplitD = T::kSplit;
+  constexpr bool kY = kStep != kStepDv;   // dP, hence dS, this step
+  constexpr bool kP = kStep == kStepDkv || kStep == kStepDv;  // dV
+  constexpr int kSteps = kSplitD ? T::kChunks * 2 : T::kChunks * 4;
+  constexpr int kRows = T::kRows;
+  float xv[BN / 2], yv[kY ? BN / 2 : 1];
+  const uint32_t a_off = x.kk0 / 4 * kRows * 128;
+  const uint32_t b_off = s * T::kSBytes + x.kk0 / 4 * BN * 128;
+  if constexpr (kY) {
+    const uint64_t da = sr3::wgmma_desc_sw128(x.r2 + a_off);
+    const uint64_t db = sr3::wgmma_desc_sw128(x.b2 + b_off);
+    sr3::mbar_wait(x.b2_full + s, ph);
+    sr3::wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 16; ++i) mine[32 * i] = x[i / 4][i % 4];
-  sr3::bar_sync(bar, 128);
+    for (int kk = 0; kk < kSteps; ++kk)
+      sr3::wgmma_ss<BN>(yv, da + (((kk / 4) * kRows * 128 + 32 * (kk % 4)) >> 4),
+                        db + (((kk / 4) * BN * 128 + 32 * (kk % 4)) >> 4),
+                        kk > 0);
+    sr3::wgmma_commit();
+  }
+  {
+    const uint64_t da = sr3::wgmma_desc_sw128(x.r1 + a_off);
+    const uint64_t db = sr3::wgmma_desc_sw128(x.b1 + b_off);
+    sr3::mbar_wait(x.b1_full + s, ph);
+    sr3::wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
-    x[i / 4][i % 4] = group[32 * i] + group[kPartial + 32 * i] +
-                      group[2 * kPartial + 32 * i] +
-                      group[3 * kPartial + 32 * i];
-}
-
-__global__ void __launch_bounds__(kMThreads, 1)
-    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ g,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ dsum,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             int S, int D, float scale) {
-  extern __shared__ uint4 mma_smem[];
-  const int ld = D + kPad;
-  bf16* k_s = reinterpret_cast<bf16*>(mma_smem);  // [kMBK][ld]
-  bf16* v_s = k_s + kMBK * ld;                    // [kMBK][ld]
-  bf16* ring = v_s + kMBK * ld;                   // [2][Q, dO][kMBQ][ld]
-  float* part = reinterpret_cast<float*>(ring + 2 * 2 * kMBQ * ld);
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int kg = warp / 4, qt = warp % 4;  // key group, column quarter
-  const int gid = lane / 4, tig = lane % 4;
-  const int bh = blockIdx.y, k0 = blockIdx.x * kMBK;
-  const size_t base = (size_t)bh * S * D;
-  const bf16* qb = q + base;
-  const bf16* gb = g + base;
-  const float* lb = lse + (size_t)bh * S;
-  const float* db = dsum + (size_t)bh * S;
-  // this warp's k-steps of S^T, dP^T (over D) and 8-column dK / dV tiles
-  const int nks = D / 16, ks0 = qt * nks / 4, ks1 = (qt + 1) * nks / 4;
-  const int nnt = D / 8, nt0 = qt * nnt / 4, nt1 = (qt + 1) * nnt / 4;
-  const int ntiles = (S + kMBQ - 1) / kMBQ;
-
-  sr3::stage_rows<kMBK, kMThreads>(k_s, k + base, k0, S, D, ld);
-  sr3::stage_rows<kMBK, kMThreads>(v_s, v + base, k0, S, D, ld);
-  sr3::stage_rows<kMBQ, kMThreads>(ring, qb, 0, S, D, ld);
-  sr3::stage_rows<kMBQ, kMThreads>(ring + kMBQ * ld, gb, 0, S, D, ld);
-  sr3::cp_async_commit();
-
-  float acc_k[kMaxNT][4], acc_v[kMaxNT][4];
+    for (int kk = 0; kk < kSteps; ++kk)
+      sr3::wgmma_ss<BN>(xv, da + (((kk / 4) * kRows * 128 + 32 * (kk % 4)) >> 4),
+                        db + (((kk / 4) * BN * 128 + 32 * (kk % 4)) >> 4),
+                        kk > 0);
+    sr3::wgmma_commit();
+  }
+  sr3::wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < kMaxNT; ++i)
+  for (int j = 0; j < BN / 2; ++j) sr3::fence_operand(xv[j]);
+  if constexpr (kY) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+    for (int j = 0; j < BN / 2; ++j) sr3::fence_operand(yv[j]);
+  }
+  // streamed operands no later product reads: V (K6), dO (K5's dK pass);
+  // Q in K5's dV pass once its statistics are read, below
+  if constexpr (kStep == kStepDq || kStep == kStepDk)
+    release(x, x.b2_empty + s);
 
-  // ldmatrix row addresses: A (16 keys x 16 d), B (2 x 8 queries x 16 d)
-  const int a_off = (16 * kg + lane % 16) * ld + 8 * (lane / 16);
-  const int b_off = ((lane % 8) + 8 * (lane / 16)) * ld + 8 * ((lane / 8) % 2);
-  float* mine = part + warp * kPartial + lane;
-  const float* group = part + 4 * kg * kPartial + lane;
-  const int key0 = k0 + 16 * kg + gid;  // keys of C rows gid, gid + 8
-
-  for (int t = 0; t < ntiles; ++t) {
-    sr3::cp_async_wait<0>();
-    __syncthreads();  // tile t landed for all; tile t - 1's stage is free
-    if (t + 1 < ntiles) {
-      bf16* next = ring + ((t + 1) % 2) * 2 * kMBQ * ld;
-      const int q1 = (t + 1) * kMBQ;
-      sr3::stage_rows<kMBQ, kMThreads>(next, qb, q1, S, D, ld);
-      sr3::stage_rows<kMBQ, kMThreads>(next + kMBQ * ld, gb, q1, S, D, ld);
-      sr3::cp_async_commit();
+  if constexpr (kSplitD) {
+    // barrier 1: both partials written; 2 + w: warpgroup w's buffer read
+    // by the other, before w writes it again (a + b == b + a: both
+    // warpgroups hold the same X and Y)
+    float* mine = x.xs + x.cw * 2 * T::kXTile + x.tid % 128;
+    const float* other = x.xs + (1 - x.cw) * 2 * T::kXTile + x.tid % 128;
+    if (it > 0) sr3::bar_sync(2 + x.cw, 256);
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) mine[128 * j] = xv[j];
+    if constexpr (kY) {
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) mine[T::kXTile + 128 * j] = yv[j];
     }
-    const bf16* q_s = ring + (t % 2) * 2 * kMBQ * ld;
-    const bf16* g_s = q_s + kMBQ * ld;
-    const int qcol = t * kMBQ + 2 * tig;  // query of C column 2 * tig
-
-    // lse and dsum of this thread's query columns 8 j + 2 tig + e
-    float lq[8], dsq[8];
+    sr3::bar_sync(1, 256);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int qi = qcol + 8 * (c / 2) + c % 2;
-      lq[c] = qi < S ? lb[qi] : 0.f;
-      dsq[c] = qi < S ? db[qi] : 0.f;
+    for (int j = 0; j < BN / 2; ++j) xv[j] += other[128 * j];
+    if constexpr (kY) {
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) yv[j] += other[T::kXTile + 128 * j];
     }
-
-    // this warp's quarter-D partials of S^T and dP^T (16 keys x 32 queries)
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll 2
-    for (int ks = ks0; ks < ks1; ++ks) {
-      uint32_t ak[4], av[4], b[4];
-      sr3::ldmatrix_x4(ak, k_s + a_off + 16 * ks);
-      sr3::ldmatrix_x4(av, v_s + a_off + 16 * ks);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        sr3::ldmatrix_x4(b, q_s + 16 * jp * ld + b_off + 16 * ks);
-        sr3::mma_bf16(st[2 * jp], ak, b[0], b[1]);
-        sr3::mma_bf16(st[2 * jp + 1], ak, b[2], b[3]);
-        sr3::ldmatrix_x4(b, g_s + 16 * jp * ld + b_off + 16 * ks);
-        sr3::mma_bf16(dpt[2 * jp], av, b[0], b[1]);
-        sr3::mma_bf16(dpt[2 * jp + 1], av, b[2], b[3]);
-      }
-    }
-    group_sum(st, mine, group, 1 + kg);
-    sr3::bar_sync(1 + kg, 128);  // the group has read the S^T partials
-    group_sum(dpt, mine, group, 1 + kg);
-
-    // P^T and dS^T in float32; masked keys and queries give 0
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int j = i / 4, e = i % 4, c = 2 * j + e % 2;
-      const bool ok = key0 + 8 * (e / 2) < S && qcol + 8 * j + e % 2 < S;
-      const float p = ok ? expf(st[j][e] * scale - lq[c]) : 0.f;
-      st[j][e] = p;
-      dpt[j][e] = p * (dpt[j][e] - dsq[c]) * scale;
-    }
-    uint32_t pa[2][4], da[2][4];  // queries 0-15, 16-31
-    sr3::c_to_a(pa[0], st[0], st[1]);
-    sr3::c_to_a(pa[1], st[2], st[3]);
-    sr3::c_to_a(da[0], dpt[0], dpt[1]);
-    sr3::c_to_a(da[1], dpt[2], dpt[3]);
-
-    // dV += P^T dO and dK += dS^T Q over this warp's columns
-#pragma unroll
-    for (int i = 0; i < kMaxNT; ++i) {
-      if (nt0 + i < nt1) {
-        const int col = 8 * (nt0 + i);
-        uint32_t b[4];
-        sr3::ldmatrix_x4_trans(b, g_s + lane * ld + col);
-        sr3::mma_bf16(acc_v[i], pa[0], b[0], b[1]);
-        sr3::mma_bf16(acc_v[i], pa[1], b[2], b[3]);
-        sr3::ldmatrix_x4_trans(b, q_s + lane * ld + col);
-        sr3::mma_bf16(acc_k[i], da[0], b[0], b[1]);
-        sr3::mma_bf16(acc_k[i], da[1], b[2], b[3]);
-      }
-    }
+    if (it + 1 < x.total) sr3::bar_arrive(3 - x.cw, 256);
   }
 
+  // P and dS on the fragments: d[4j + e] is row gid + 8 (e / 2), column
+  // 8j + 2 tig + e % 2 of the tile
+  if constexpr (T::kColStats) {
+    // K5: the statistics of the query columns; a query past S has
+    // lse = +inf and dsum = 0, so P = 0 and dS = 0 there
+    const float* sl = x.stats + s * 2 * BN + 2 * x.tig;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(sl + 8 * j);
+      float2 d = make_float2(0.f, 0.f);
+      if constexpr (kY) d = *reinterpret_cast<const float2*>(sl + BN + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(xv[4 * j + e], x.c, -((e & 1) ? l.y : l.x)));
+        if constexpr (kY)
+          yv[4 * j + e] = p * (yv[4 * j + e] - ((e & 1) ? d.y : d.x)) * x.scale;
+        xv[4 * j + e] = p;
+      }
+    }
+  } else {
+    // K6: the statistics of the rows; keys at or past S give P = 0
+    const int k0 = t * BN;
+    const bool ragged = k0 + BN > x.S;
+    const int lim = x.S - k0 - 2 * x.tig;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(xv[4 * j + e], x.c, -x.l2[e >> 1]));
+        if (ragged && 8 * j + (e & 1) >= lim) p = 0.f;
+        yv[4 * j + e] = p * (yv[4 * j + e] - x.ds[e >> 1]) * x.scale;
+      }
+  }
+
+  if constexpr (kStep == kStepDv) release(x, x.b1_empty + s);
+
+  // acc_p += P B2 and acc_ds += dS B1, B1 / B2 MN-major by descriptor
+  const uint32_t n_off = s * T::kSBytes + (x.col0 / 64) * BN * 128;
+  uint32_t pa[kP ? BN / 16 : 1][4], da[kY ? BN / 16 : 1][4];
+  if constexpr (kP) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      sr3::c_to_a(pa[kk], xv + 8 * kk, xv + 8 * kk + 4);
+  }
+  if constexpr (kY) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      sr3::c_to_a(da[kk], yv + 8 * kk, yv + 8 * kk + 4);
+  }
+  // K5's dV pass: dO has not been waited for by a Y product
+  if constexpr (!kY) sr3::mbar_wait(x.b2_full + s, ph);
+  sr3::wgmma_fence();
+  if constexpr (kP) {
+    const uint64_t d2 = sr3::wgmma_desc_sw128_mn(x.b2 + n_off, BN * 128);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      sr3::wgmma_rs_t<T::kOCols>(acc_p, pa[kk], d2 + ((2048 * kk) >> 4));
+  }
+  if constexpr (kY) {
+    const uint64_t d1 = sr3::wgmma_desc_sw128_mn(x.b1 + n_off, BN * 128);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      sr3::wgmma_rs_t<T::kOCols>(acc_ds, da[kk], d1 + ((2048 * kk) >> 4));
+  }
+  sr3::wgmma_commit();
+  sr3::wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < T::kOCols / 2; ++j) {
+    if constexpr (kP) sr3::fence_operand(acc_p[j]);
+    if constexpr (kY) sr3::fence_operand(acc_ds[j]);
+  }
+  if constexpr (kP) release(x, x.b2_empty + s);
+  if constexpr (kY) release(x, x.b1_empty + s);
+}
+
+// A warpgroup's accumulator (its 64 rows from `row`, columns from col0)
+// into rows of `out` (head base included); rows past S and columns past D
+// are not written.
+template <int kOCols>
+__device__ __forceinline__ void store_rows(float* out, const float* acc,
+                                           int row, int gid, int tig,
+                                           int col0, int S, int D) {
+  const int ncols = D - col0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= S) continue;
-    const size_t row = base + (size_t)key * D + 2 * tig;
+    const int ri = row + gid + 8 * r;
+    if (ri >= S) continue;
+    float* orow = out + (size_t)ri * D + col0 + 2 * tig;
 #pragma unroll
-    for (int i = 0; i < kMaxNT; ++i) {
-      if (nt0 + i < nt1) {
-        const size_t at = row + 8 * (nt0 + i);
-        *reinterpret_cast<float2*>(dk + at) =
-            make_float2(acc_k[i][2 * r], acc_k[i][2 * r + 1]);
-        *reinterpret_cast<float2*>(dv + at) =
-            make_float2(acc_v[i][2 * r], acc_v[i][2 * r + 1]);
+    for (int j = 0; j < kOCols / 8; ++j)
+      if (8 * j < ncols)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// Block (resident row tile x, bh y, split z of the streamed tiles):
+// producer warpgroup 0 (warp 0: one thread issues every TMA load; in K5
+// its 32 lanes also stage each query tile's lse and dsum), consumer
+// warpgroups 1 and 2. K5 (kMode kDkv / kDkv2): r1, r2 = K, V; s1, s2 =
+// Q, dO; out1 = dk, out2 = dv. K6 (kDq): r1, r2 = Q, dO; s1, s2 = K, V;
+// out1 = dq. ws: null, or the workspace of a split ([splits][outputs]
+// [BH][S][D] partial sums), where out1 / out2 are not written. rbox: rows
+// of the resident tensor maps' box, fewer than the tile's where S is: the
+// rows past it are left as they are in shared memory, and a resident row
+// feeds only its own output row, which is past S and never stored.
+template <int DC, int BN, bool kSplitD, int kMode>
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap r1map,
+                           const __grid_constant__ CUtensorMap r2map,
+                           const __grid_constant__ CUtensorMap s1map,
+                           const __grid_constant__ CUtensorMap s2map,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dsum,
+                           float* __restrict__ out1, float* __restrict__ out2,
+                           float* __restrict__ ws, int BH, int S, int D,
+                           float scale, int per, int rbox) {
+  using T = BwdTile<DC, BN, kSplitD, kMode>;
+  extern __shared__ uint8_t bwd_smem[];
+  uint8_t* base =
+      bwd_smem + ((1024 - (sr3::smem_u32(bwd_smem) & 1023)) & 1023);
+  bf16* r1 = reinterpret_cast<bf16*>(base);
+  bf16* r2 = r1 + T::kRBytes / 2;
+  bf16* b1 = r2 + T::kRBytes / 2;
+  bf16* b2 = b1 + T::kStages * (T::kSBytes / 2);
+  float* stats = reinterpret_cast<float*>(b2 + T::kStages * (T::kSBytes / 2));
+  float* xs = stats + T::kStages * (T::kStatBytes / 4);
+  uint64_t* r_full = reinterpret_cast<uint64_t*>(xs + T::kXBytes / 4);
+  uint64_t* b1_full = r_full + 1;
+  uint64_t* b1_empty = b1_full + T::kStages;
+  uint64_t* b2_full = b1_empty + T::kStages;
+  uint64_t* b2_empty = b2_full + T::kStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, r0 = blockIdx.x * T::kRows, split = blockIdx.z;
+  const int t0 = split * per;
+  const int ntiles = min((S + BN - 1) / BN - t0, per);
+  const int total = T::kPasses * ntiles;
+
+  if (tid == 0) {
+    sr3::mbar_init(r_full, 1);
+    for (int s = 0; s < T::kStages; ++s) {
+      // K5: the TMA thread's arrival and the 32 lanes' statistics
+      sr3::mbar_init(b1_full + s, T::kColStats ? 33 : 1);
+      sr3::mbar_init(b2_full + s, 1);
+      sr3::mbar_init(b1_empty + s, kConsumerWarps);
+      sr3::mbar_init(b2_empty + s, kConsumerWarps);
+    }
+    sr3::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // one if / else for the two roles, which never meet again (setmaxnreg)
+  if (warp < 4) {  // producer
+    sr3::setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && (T::kColStats || lane == 0)) {
+      if (lane == 0) {
+        sr3::tma_prefetch_map(&r1map);
+        sr3::tma_prefetch_map(&r2map);
+        sr3::tma_prefetch_map(&s1map);
+        sr3::tma_prefetch_map(&s2map);
+        sr3::mbar_expect_tx(r_full, 2 * T::kChunks * rbox * 128);
+        for (int c = 0; c < T::kChunks; ++c) {
+          sr3::tma_load_3d(r1 + c * T::kRows * 64, &r1map, r_full, 64 * c, r0,
+                           bh);
+          sr3::tma_load_3d(r2 + c * T::kRows * 64, &r2map, r_full, 64 * c, r0,
+                           bh);
+        }
+      }
+      const float* lrow = lse + (size_t)bh * S;
+      const float* drow = dsum + (size_t)bh * S;
+      for (int it = 0; it < total; ++it) {
+        const int s = it % T::kStages, row = (t0 + it % ntiles) * BN;
+        const uint32_t ph = (it / T::kStages) & 1;
+        // K5's statistics of this tile, read before the wait
+        constexpr int kPerLane = (BN + 31) / 32;
+        float sl[kPerLane], sd[kPerLane];
+        if constexpr (T::kColStats) {
+#pragma unroll
+          for (int i = 0; i < kPerLane; ++i) {
+            const int c = lane + 32 * i, qi = row + c;
+            const bool ok = c < BN && qi < S;
+            sl[i] = ok ? lrow[qi] * kLog2e : INFINITY;
+            sd[i] = ok ? drow[qi] : 0.f;
+          }
+        }
+        // the operand the consumers release first is loaded first: Q in
+        // K5's dV pass, else dO (K5) or V (K6)
+        const bool b1_first = kMode == kDkv2 && it < ntiles;
+        for (int o = 0; o < 2; ++o) {
+          if ((o == 0) == b1_first) {
+            sr3::mbar_wait(b1_empty + s, ph ^ 1);
+            if (lane == 0) {
+              sr3::mbar_expect_tx(b1_full + s, T::kSBytes);
+              bf16* dst = b1 + s * (T::kSBytes / 2);
+              for (int c = 0; c < T::kChunks; ++c)
+                sr3::tma_load_3d(dst + c * BN * 64, &s1map, b1_full + s,
+                                 64 * c, row, bh);
+            }
+            if constexpr (T::kColStats) {
+              float* st = stats + s * 2 * BN;
+#pragma unroll
+              for (int i = 0; i < kPerLane; ++i) {
+                const int c = lane + 32 * i;
+                if (c < BN) {
+                  st[c] = sl[i];
+                  st[BN + c] = sd[i];
+                }
+              }
+              sr3::mbar_arrive(b1_full + s);
+            }
+          } else if (lane == 0) {
+            sr3::mbar_wait(b2_empty + s, ph ^ 1);
+            sr3::mbar_expect_tx(b2_full + s, T::kSBytes);
+            bf16* dst = b2 + s * (T::kSBytes / 2);
+            for (int c = 0; c < T::kChunks; ++c)
+              sr3::tma_load_3d(dst + c * BN * 64, &s2map, b2_full + s, 64 * c,
+                               row, bh);
+          }
+        }
       }
     }
-  }
-}
-
-// ------------------------------------------------------ K6, bfloat16 route
-//
-// The mirror of K5's design with the queries resident: a block of 8 warps
-// owns 32 queries, whose Q and dO rows stay in shared memory; 32-key tiles
-// of K and V stream through the two-stage cp.async ring. Warp w owns query
-// group w / 4 (16 queries) and the w % 4-th quarter of dQ's 8-column tiles
-// (16 x 128 float32 at D = 512: 64 registers a thread). S = Q K^T and
-// dP = dO V^T are split-d partials over the warp's quarter of D, summed by
-// group_sum as in K5; P and dS follow in float32 registers, and dS, rounded
-// to bf16, is the A operand of dQ += dS K, whose B fragments come from
-// ldmatrix.trans of the same K tile.
-constexpr int kQBQ = 32;  // queries per block: 2 groups of 16
-constexpr int kQBK = 32;  // keys per streamed tile
-
-size_t dq_mma_smem_bytes(int D) {
-  const size_t ld = D + kPad;
-  return sizeof(bf16) * (2 * kQBQ + 2 * 2 * kQBK) * ld +
-         sizeof(float) * kMWarps * kPartial;
-}
-
-__global__ void __launch_bounds__(kMThreads, 1)
-    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ g,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ dsum,
-                            float* __restrict__ dq, int S, int D,
-                            float scale) {
-  extern __shared__ uint4 mma_smem[];
-  const int ld = D + kPad;
-  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);  // [kQBQ][ld]
-  bf16* g_s = q_s + kQBQ * ld;                    // [kQBQ][ld] dO
-  bf16* ring = g_s + kQBQ * ld;                   // [2][K, V][kQBK][ld]
-  float* part = reinterpret_cast<float*>(ring + 2 * 2 * kQBK * ld);
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int qg = warp / 4, qt = warp % 4;  // query group, column quarter
-  const int gid = lane / 4, tig = lane % 4;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kQBQ;
-  const size_t base = (size_t)bh * S * D;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-  // this warp's k-steps of S, dP (over D) and 8-column dQ tiles
-  const int nks = D / 16, ks0 = qt * nks / 4, ks1 = (qt + 1) * nks / 4;
-  const int nnt = D / 8, nt0 = qt * nnt / 4, nt1 = (qt + 1) * nnt / 4;
-  const int ntiles = (S + kQBK - 1) / kQBK;
-
-  sr3::stage_rows<kQBQ, kMThreads>(q_s, q + base, q0, S, D, ld);
-  sr3::stage_rows<kQBQ, kMThreads>(g_s, g + base, q0, S, D, ld);
-  sr3::stage_rows<kQBK, kMThreads>(ring, kb, 0, S, D, ld);
-  sr3::stage_rows<kQBK, kMThreads>(ring + kQBK * ld, vb, 0, S, D, ld);
-  sr3::cp_async_commit();
-
-  float acc[kMaxNT][4];
+  } else {  // consumers
+    sr3::setmaxnreg_inc<kConsumerRegs>();
+    const int cw = warp / 4 - 1;  // consumer warpgroup 0 / 1
+    const int gid = lane / 4, tig = lane % 4;
+    const int row0 = kSplitD ? 0 : 64 * cw;  // its rows of the block's tile
+    BwdCtx x;
+    x.r1 = sr3::smem_u32(r1) + row0 * 128;
+    x.r2 = sr3::smem_u32(r2) + row0 * 128;
+    x.b1 = sr3::smem_u32(b1);
+    x.b2 = sr3::smem_u32(b2);
+    x.stats = stats;
+    x.xs = xs;
+    x.b1_full = b1_full;
+    x.b1_empty = b1_empty;
+    x.b2_full = b2_full;
+    x.b2_empty = b2_empty;
+    x.S = S;
+    x.lane = lane;
+    x.tid = tid;
+    x.cw = cw;
+    x.tig = tig;
+    x.kk0 = kSplitD ? cw * T::kChunks * 2 : 0;  // its k-steps over D
+    x.col0 = kSplitD ? cw * T::kOCols : 0;      // its output columns
+    x.total = total;
+    x.c = scale * kLog2e;
+    x.scale = scale;
+    const int row = r0 + row0 + 16 * (warp % 4);  // this warp's 16 rows
+    x.l2[0] = x.l2[1] = x.ds[0] = x.ds[1] = 0.f;
+    if constexpr (!T::kColStats) {
 #pragma unroll
-  for (int i = 0; i < kMaxNT; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  // lse and dsum of this thread's query rows gid, gid + 8
-  const int query0 = q0 + 16 * qg + gid;
-  float lq[2], dsq[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = query0 + 8 * r;
-    lq[r] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
-    dsq[r] = qi < S ? dsum[(size_t)bh * S + qi] : 0.f;
-  }
-
-  // ldmatrix row addresses: A (16 queries x 16 d), B (2 x 8 keys x 16 d)
-  const int a_off = (16 * qg + lane % 16) * ld + 8 * (lane / 16);
-  const int b_off = ((lane % 8) + 8 * (lane / 16)) * ld + 8 * ((lane / 8) % 2);
-  float* mine = part + warp * kPartial + lane;
-  const float* group = part + 4 * qg * kPartial + lane;
-
-  for (int t = 0; t < ntiles; ++t) {
-    sr3::cp_async_wait<0>();
-    __syncthreads();  // tile t landed for all; tile t - 1's stage is free
-    if (t + 1 < ntiles) {
-      bf16* next = ring + ((t + 1) % 2) * 2 * kQBK * ld;
-      const int k1 = (t + 1) * kQBK;
-      sr3::stage_rows<kQBK, kMThreads>(next, kb, k1, S, D, ld);
-      sr3::stage_rows<kQBK, kMThreads>(next + kQBK * ld, vb, k1, S, D, ld);
-      sr3::cp_async_commit();
-    }
-    const bf16* k_s = ring + (t % 2) * 2 * kQBK * ld;
-    const bf16* v_s = k_s + kQBK * ld;
-    const int kcol = t * kQBK + 2 * tig;  // key of C column 2 * tig
-
-    // this warp's quarter-D partials of S and dP (16 queries x 32 keys)
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll 2
-    for (int ks = ks0; ks < ks1; ++ks) {
-      uint32_t aq[4], ag[4], b[4];
-      sr3::ldmatrix_x4(aq, q_s + a_off + 16 * ks);
-      sr3::ldmatrix_x4(ag, g_s + a_off + 16 * ks);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        sr3::ldmatrix_x4(b, k_s + 16 * jp * ld + b_off + 16 * ks);
-        sr3::mma_bf16(s[2 * jp], aq, b[0], b[1]);
-        sr3::mma_bf16(s[2 * jp + 1], aq, b[2], b[3]);
-        sr3::ldmatrix_x4(b, v_s + 16 * jp * ld + b_off + 16 * ks);
-        sr3::mma_bf16(dp[2 * jp], ag, b[0], b[1]);
-        sr3::mma_bf16(dp[2 * jp + 1], ag, b[2], b[3]);
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row + gid + 8 * r;
+        if (qi < S) {
+          x.l2[r] = lse[(size_t)bh * S + qi] * kLog2e;
+          x.ds[r] = dsum[(size_t)bh * S + qi];
+        }
       }
     }
-    group_sum(s, mine, group, 1 + qg);
-    sr3::bar_sync(1 + qg, 128);  // the group has read the S partials
-    group_sum(dp, mine, group, 1 + qg);
-
-    // P and dS in float32; masked queries and keys give 0
+    constexpr bool kTwoAcc = kMode == kDkv;
+    float acc_p[kTwoAcc ? T::kOCols / 2 : 1];
+    float acc[T::kOCols / 2];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int j = i / 4, e = i % 4, r = e / 2;
-      const bool ok = query0 + 8 * r < S && kcol + 8 * j + e % 2 < S;
-      const float p = ok ? expf(s[j][e] * scale - lq[r]) : 0.f;
-      dp[j][e] = p * (dp[j][e] - dsq[r]) * scale;
-    }
-    uint32_t da[2][4];  // keys 0-15, 16-31
-    sr3::c_to_a(da[0], dp[0], dp[1]);
-    sr3::c_to_a(da[1], dp[2], dp[3]);
-
-    // dQ += dS K over this warp's columns
-    const bf16* kt = k_s + lane * ld;
+    for (int i = 0; i < T::kOCols / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxNT; ++i) {
-      if (nt0 + i < nt1) {
-        uint32_t b[4];
-        sr3::ldmatrix_x4_trans(b, kt + 8 * (nt0 + i));
-        sr3::mma_bf16(acc[i], da[0], b[0], b[1]);
-        sr3::mma_bf16(acc[i], da[1], b[2], b[3]);
+    for (int i = 0; i < (kTwoAcc ? T::kOCols / 2 : 1); ++i) acc_p[i] = 0.f;
+
+    const size_t plane = (size_t)BH * S * D, head = (size_t)bh * S * D;
+    constexpr int kOuts = T::kColStats ? 2 : 1;
+    float* o1 = ws == nullptr ? out1 : ws + (size_t)split * kOuts * plane;
+    float* o2 = ws == nullptr ? out2 : o1 + plane;
+
+    sr3::mbar_wait(r_full, 0);
+    for (int it = 0; it < total; ++it) {
+      const int s = it % T::kStages, t = t0 + it % ntiles;
+      const uint32_t ph = (it / T::kStages) & 1;
+      if constexpr (kMode == kDq) {
+        bwd_step<T, kStepDq>(x, acc, acc, it, t, s, ph);
+      } else if constexpr (kMode == kDkv) {
+        bwd_step<T, kStepDkv>(x, acc_p, acc, it, t, s, ph);
+      } else {
+        if (it < ntiles) {
+          bwd_step<T, kStepDv>(x, acc, acc, it, t, s, ph);
+          if (it == ntiles - 1) {  // dV done: store it, then dK's pass
+            store_rows<T::kOCols>(o2 + head, acc, row, gid, tig, x.col0, S,
+                                  D);
+#pragma unroll
+            for (int i = 0; i < T::kOCols / 2; ++i) acc[i] = 0.f;
+          }
+        } else {
+          bwd_step<T, kStepDk>(x, acc, acc, it, t, s, ph);
+        }
       }
     }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = query0 + 8 * r;
-    if (qi >= S) continue;
-    float* row = dq + base + (size_t)qi * D + 2 * tig;
-#pragma unroll
-    for (int i = 0; i < kMaxNT; ++i)
-      if (nt0 + i < nt1)
-        *reinterpret_cast<float2*>(row + 8 * (nt0 + i)) =
-            make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
+    store_rows<T::kOCols>(o1 + head, acc, row, gid, tig, x.col0, S, D);
+    if constexpr (kTwoAcc)
+      store_rows<T::kOCols>(o2 + head, acc_p, row, gid, tig, x.col0, S, D);
   }
 }
 
-// 16-byte cp.async copies: every row starts 16-byte aligned (D % 16 == 0)
-bool misaligned(const void* q, const void* k, const void* v, const void* g) {
-  return (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g)) %
-         16;
+// After a split: each output the sum of the splits' partials, in split
+// order (no atomics: two calls give the same bits). 4 floats a thread.
+__global__ void __launch_bounds__(256)
+    flash_bwd_merge_kernel(const float* __restrict__ ws,
+                           float* __restrict__ out1, float* __restrict__ out2,
+                           long long n, int outs, int splits) {
+  const long long i = 4 * ((long long)blockIdx.x * 256 + threadIdx.x);
+  if (i >= n) return;
+  for (int o = 0; o < outs; ++o) {
+    float4 acc = *reinterpret_cast<const float4*>(ws + o * n + i);
+    for (int z = 1; z < splits; ++z) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(ws + (z * outs + o) * n + i);
+      acc.x += a.x;
+      acc.y += a.y;
+      acc.z += a.z;
+      acc.w += a.w;
+    }
+    *reinterpret_cast<float4*>((o == 0 ? out1 : out2) + i) = acc;
+  }
 }
 
-cudaError_t dkv_mma(const void* q, const void* k, const void* v,
-                    const void* g, const float* lse, const float* dsum,
-                    float* dk, float* dv, int BH, int S, int D, float scale,
-                    cudaStream_t stream) {
-  if (misaligned(q, k, v, g)) return cudaErrorInvalidValue;
+// The launch plan of a bf16 backward kernel (kernel 0: K5, 1: K6; mirrored
+// for the CPU tests in tests/torch_port_attention_plan.py): the class of
+// D, resident row tiles of `rows`, streamed tiles of `bn`; where the blocks
+// (row_tiles x BH) fill at most a quarter of the SMs, the streamed tiles
+// (K5's queries, K6's keys) are split over `splits` blocks of `per` tiles
+// each (as many as bring the blocks up to the SMs, at most kMaxSplits, at
+// least kMinSplitTiles tiles a split). Not up to half a wave, as K4 splits:
+// a split adds its outputs' float32 partials to the traffic twice (written,
+// then read by the merge), and at 16x256x512 (64 blocks) the split ran
+// 1.35-1.38x the unsplit time in two runs on an H100 SXM
+// (sr3_tpu_torch/attention_variants.py bwd "half_wave").
+struct BwdPlan {
+  int cls, rows, bn, row_tiles, col_tiles, splits, per;
+};
+
+BwdPlan bwd_plan(int BH, int S, int D, int kernel, int sms) {
+  BwdPlan p{};
+  p.cls = D <= 64 ? 0 : D <= 128 ? 1 : D <= 256 ? 2 : 3;
+  p.rows = kernel == 0 ? kDkvRows[p.cls] : kDqRows[p.cls];
+  p.bn = kernel == 0 ? kDkvBN[p.cls] : kDqBN[p.cls];
+  p.row_tiles = (S + p.rows - 1) / p.rows;
+  p.col_tiles = (S + p.bn - 1) / p.bn;
+  const long long blocks = (long long)p.row_tiles * BH;
+  long long n = 1;
+  if (4 * blocks <= sms) {
+    n = sms / blocks;
+    if (n > kMaxSplits) n = kMaxSplits;
+    if (n > p.col_tiles / kMinSplitTiles) n = p.col_tiles / kMinSplitTiles;
+    if (n < 1) n = 1;
+  }
+  p.per = (p.col_tiles + (int)n - 1) / (int)n;
+  p.splits = (p.col_tiles + p.per - 1) / p.per;
+  return p;
+}
+
+cudaError_t current_plan(int BH, int S, int D, int kernel, BwdPlan* p) {
+  int sms = 0;
+  const cudaError_t err = sr3::sm_count(&sms);
+  if (err == cudaSuccess) *p = bwd_plan(BH, S, D, kernel, sms);
+  return err;
+}
+
+// Floats of a split's workspace: the partial sums of K5's two outputs or
+// K6's one, a split each.
+long long workspace_floats(const BwdPlan& p, int BH, int S, int D,
+                           int kernel) {
+  return p.splits > 1 ? (long long)p.splits * (kernel == 0 ? 2 : 1) * BH *
+                            S * D
+                      : 0;
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *g;
+  const float *lse, *dsum;
+  float *out1, *out2, *ws;  // K5: dk, dv; K6: dq, null
+  int BH, S, D;
+  float scale;
+};
+
+template <int kKernel, int kCls>
+cudaError_t launch_class(const BwdArgs& a, const BwdPlan& p,
+                         cudaStream_t st) {
+  constexpr int DC = kClassDC[kCls];
+  constexpr int BN = kKernel == 0 ? kDkvBN[kCls] : kDqBN[kCls];
+  constexpr bool kSplitD =
+      (kKernel == 0 ? kDkvRows[kCls] : kDqRows[kCls]) == 64;
+  // K5 takes two passes where dK and dV together would not fit the
+  // registers (above 128 output floats a thread)
+  constexpr int kOCols = kSplitD ? DC / 2 : DC;
+  constexpr int kMode = kKernel == 1 ? kDq : kOCols > 128 ? kDkv2 : kDkv;
+  using T = BwdTile<DC, BN, kSplitD, kMode>;
+  static_assert(T::kRows <= 256 && BN <= 256, "a TMA box has <= 256 rows");
+  const auto kernel = flash_bwd_wgmma_kernel<DC, BN, kSplitD, kMode>;
   static sr3::SmemLimit limit;
-  cudaError_t err = sr3::raise_smem_limit(
-      limit, (const void*)flash_bwd_dkv_mma_kernel, dkv_mma_smem_bytes(kDMax));
+  cudaError_t err = sr3::raise_smem_limit(limit, (const void*)kernel, T::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kMBK - 1) / kMBK, BH);
-  flash_bwd_dkv_mma_kernel<<<grid, kMThreads, dkv_mma_smem_bytes(D),
-                             stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, dsum, dk,
-      dv, S, D, scale);
-  return cudaGetLastError();
+  // resident operands (K5: K, V; K6: Q, dO) and streamed ones
+  const void* r1 = kKernel == 0 ? a.k : a.q;
+  const void* r2 = kKernel == 0 ? a.v : a.g;
+  const void* s1 = kKernel == 0 ? a.q : a.k;
+  const void* s2 = kKernel == 0 ? a.g : a.v;
+  // the resident box: the tile's rows, or S rounded up to 8 where the
+  // tile is longer (fewer bytes zero-filled); streamed tiles stay whole,
+  // zero past S, as every row of them feeds every output row
+  const int rbox = a.S < T::kRows ? (a.S + 7) / 8 * 8 : T::kRows;
+  CUtensorMap r1map, r2map, s1map, s2map;
+  if (!sr3::encode_map(&r1map, r1, a.BH, a.S, a.D, rbox) ||
+      !sr3::encode_map(&r2map, r2, a.BH, a.S, a.D, rbox) ||
+      !sr3::encode_map(&s1map, s1, a.BH, a.S, a.D, BN) ||
+      !sr3::encode_map(&s2map, s2, a.BH, a.S, a.D, BN))
+    return cudaErrorInvalidValue;
+  const dim3 grid(p.row_tiles, a.BH, p.splits);
+  kernel<<<grid, kWThreads, T::kSmem, st>>>(
+      r1map, r2map, s1map, s2map, a.lse, a.dsum, a.out1, a.out2,
+      p.splits > 1 ? a.ws : nullptr, a.BH, a.S, a.D, a.scale, p.per, rbox);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  g_bwd_launches[kKernel * kClasses + kCls].fetch_add(
+      1, std::memory_order_relaxed);
+  if (p.splits == 1) return cudaSuccess;
+  const long long n = (long long)a.BH * a.S * a.D;
+  flash_bwd_merge_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, st>>>(
+      a.ws, a.out1, a.out2, n, kKernel == 0 ? 2 : 1, p.splits);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    g_bwd_launches[2 * kClasses].fetch_add(1, std::memory_order_relaxed);
+  return err;
 }
 
-cudaError_t dq_mma(const void* q, const void* k, const void* v,
-                   const void* g, const float* lse, const float* dsum,
-                   float* dq, int BH, int S, int D, float scale,
-                   cudaStream_t stream) {
-  if (misaligned(q, k, v, g)) return cudaErrorInvalidValue;
-  static sr3::SmemLimit limit;
-  cudaError_t err = sr3::raise_smem_limit(
-      limit, (const void*)flash_bwd_dq_mma_kernel, dq_mma_smem_bytes(kDMax));
+cudaError_t bwd_wgmma(const BwdArgs& a, int kernel, cudaStream_t st) {
+  // TMA reads from 16-byte aligned rows (D % 16 == 0)
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.g)) %
+      16)
+    return cudaErrorInvalidValue;
+  BwdPlan p;
+  cudaError_t err = current_plan(a.BH, a.S, a.D, kernel, &p);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kQBQ - 1) / kQBQ, BH);
-  flash_bwd_dq_mma_kernel<<<grid, kMThreads, dq_mma_smem_bytes(D), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, dsum, dq,
-      S, D, scale);
-  return cudaGetLastError();
+  if (p.splits > 1 && a.ws == nullptr) return cudaErrorInvalidValue;
+  if (kernel == 0) {
+    switch (p.cls) {
+      case 0: return launch_class<0, 0>(a, p, st);
+      case 1: return launch_class<0, 1>(a, p, st);
+      case 2: return launch_class<0, 2>(a, p, st);
+      default: return launch_class<0, 3>(a, p, st);
+    }
+  }
+  switch (p.cls) {
+    case 0: return launch_class<1, 0>(a, p, st);
+    case 1: return launch_class<1, 1>(a, p, st);
+    case 2: return launch_class<1, 2>(a, p, st);
+    default: return launch_class<1, 3>(a, p, st);
+  }
 }
 
 bool bad_shape(int BH, int S, int D) {
@@ -683,12 +983,14 @@ bool bad_shape(int BH, int S, int D) {
 // the output gradient rounded to bf16); dk, dv: (BH, S, D) float32; lse (the
 // forward's logsumexp of q k^T * scale) and dsum (= rowsum(dO * O), from the
 // float32 dO): (BH, S) float32; all contiguous, bf16 operands 16-byte
-// aligned. D must be a multiple of 16 and at most 512. Returns the CUDA
-// error code.
+// aligned; workspace: the floats sr3_flash_attention_bwd_workspace_floats
+// asks for (null when it asks for none). D must be a multiple of 16 and at
+// most 512, BH at most 65535. Returns the CUDA error code.
 extern "C" int sr3_flash_attention_bwd_dkv(const void* q, const void* k,
                                            const void* v, const void* g,
                                            const float* lse, const float* dsum,
-                                           float* dk, float* dv, int BH, int S,
+                                           float* dk, float* dv,
+                                           float* workspace, int BH, int S,
                                            int D, float scale, int dtype,
                                            void* stream) {
   if (bad_shape(BH, S, D)) return (int)cudaErrorInvalidValue;
@@ -697,16 +999,19 @@ extern "C" int sr3_flash_attention_bwd_dkv(const void* q, const void* k,
     return (int)dkv_t<float>(q, k, v, static_cast<const float*>(g), lse, dsum,
                              dk, dv, BH, S, D, scale, st);
   if (dtype == sr3::kBF16)
-    return (int)dkv_mma(q, k, v, g, lse, dsum, dk, dv, BH, S, D, scale, st);
+    return (int)bwd_wgmma(BwdArgs{q, k, v, g, lse, dsum, dk, dv, workspace,
+                                  BH, S, D, scale},
+                          0, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// K6: dq, with the operands of K5 (g of dtype too); dq: (BH, S, D) float32.
+// K6: dq, with the operands of K5 (g of dtype too); dq: (BH, S, D) float32;
+// workspace as K5's, for K6.
 extern "C" int sr3_flash_attention_bwd_dq(const void* q, const void* k,
                                           const void* v, const void* g,
                                           const float* lse, const float* dsum,
-                                          float* dq, int BH, int S, int D,
-                                          float scale, int dtype,
+                                          float* dq, float* workspace, int BH,
+                                          int S, int D, float scale, int dtype,
                                           void* stream) {
   if (bad_shape(BH, S, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -714,6 +1019,50 @@ extern "C" int sr3_flash_attention_bwd_dq(const void* q, const void* k,
     return (int)dq_t<float>(q, k, v, static_cast<const float*>(g), lse, dsum,
                             dq, BH, S, D, scale, st);
   if (dtype == sr3::kBF16)
-    return (int)dq_mma(q, k, v, g, lse, dsum, dq, BH, S, D, scale, st);
+    return (int)bwd_wgmma(BwdArgs{q, k, v, g, lse, dsum, dq, nullptr,
+                                  workspace, BH, S, D, scale},
+                          1, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Floats of workspace kernel (0: K5, 1: K6) needs for (BH, S, D) of dtype
+// on the current device: 0 without a split; -1 when it does not take the
+// shape or the device cannot be read.
+extern "C" long long sr3_flash_attention_bwd_workspace_floats(int BH, int S,
+                                                              int D, int dtype,
+                                                              int kernel) {
+  if (bad_shape(BH, S, D) || (dtype != sr3::kF32 && dtype != sr3::kBF16) ||
+      (kernel != 0 && kernel != 1))
+    return -1;
+  if (dtype == sr3::kF32) return 0;
+  BwdPlan p;
+  if (current_plan(BH, S, D, kernel, &p) != cudaSuccess) return -1;
+  return workspace_floats(p, BH, S, D, kernel);
+}
+
+// The bf16 plan of kernel (0: K5, 1: K6) for (BH, S, D) on the current
+// device into out[0..6]: class, rows, bn, row_tiles, col_tiles, splits,
+// per. Returns 7, or -1 when it does not take the shape or the device
+// cannot be read.
+extern "C" int sr3_flash_attention_bwd_plan(int BH, int S, int D, int kernel,
+                                            long long* out) {
+  BwdPlan p;
+  if (bad_shape(BH, S, D) || (kernel != 0 && kernel != 1) ||
+      current_plan(BH, S, D, kernel, &p) != cudaSuccess)
+    return -1;
+  const int fields[7] = {p.cls, p.rows, p.bn, p.row_tiles, p.col_tiles,
+                         p.splits, p.per};
+  for (int i = 0; i < 7; ++i) out[i] = fields[i];
+  return 7;
+}
+
+// Launches of the bf16 routes since the last reset into counts[0..8]: K5's
+// classes dkv<DC,BN> <64,64>, <128,64>, <256,32>, <512,32>, K6's
+// dq<64,128>, <128,64>, <256,64>, <512,32>, then the merge; reset != 0 sets
+// them to 0 after reading. Returns 9.
+extern "C" int sr3_flash_attention_bwd_tiles(long long* counts, int reset) {
+  for (int i = 0; i <= 2 * kClasses; ++i)
+    counts[i] = reset ? g_bwd_launches[i].exchange(0)
+                      : g_bwd_launches[i].load();
+  return 2 * kClasses + 1;
 }

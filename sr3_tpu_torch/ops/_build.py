@@ -65,11 +65,18 @@ _SIGNATURES = {
     "sr3_flash_attention_fwd_plan": ([_I] * 3 + [_P], _I),
     # counts (5 long long), reset
     "sr3_flash_attention_fwd_tiles": ([_P, _I], _I),
-    # q, k, v, g (of dtype), lse, dsum, dk, dv, BH, S, D, scale, dtype,
-    # stream
-    "sr3_flash_attention_bwd_dkv": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
-    # q, k, v, g (of dtype), lse, dsum, dq, BH, S, D, scale, dtype, stream
-    "sr3_flash_attention_bwd_dq": ([_P] * 7 + [_I] * 3 + [_F, _I, _P], _I),
+    # q, k, v, g (of dtype), lse, dsum, dk, dv, workspace, BH, S, D, scale,
+    # dtype, stream
+    "sr3_flash_attention_bwd_dkv": ([_P] * 9 + [_I] * 3 + [_F, _I, _P], _I),
+    # q, k, v, g (of dtype), lse, dsum, dq, workspace, BH, S, D, scale,
+    # dtype, stream
+    "sr3_flash_attention_bwd_dq": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
+    # BH, S, D, dtype, kernel (0: K5, 1: K6)
+    "sr3_flash_attention_bwd_workspace_floats": ([_I] * 5, _L),
+    # BH, S, D, kernel, out (7 long long)
+    "sr3_flash_attention_bwd_plan": ([_I] * 4 + [_P], _I),
+    # counts (9 long long), reset
+    "sr3_flash_attention_bwd_tiles": ([_P, _I], _I),
 }
 
 _lib = None

@@ -12,10 +12,14 @@ autograd it saves the logsumexp and its backward runs K5 then K6, as
 ``_flash_with_vjp`` does; without grad the forward skips the logsumexp.
 Layout (batch*heads, seq, head_dim); outputs are float32, as the TPU
 kernels'. On CUDA the input dtype picks each kernel's route: float32 FMAs,
-or for bfloat16 the tensor-core routes of K4, K5 and K6, which round P (K4),
-dO, P and dS (K5) and dO, dS (K6) to bf16 before their products (within
-2e-2 of max|plain|; the logsumexp within 1e-4; the csrc headers give the
-reasons).
+or for bfloat16 the Hopper routes of K4, K5 and K6 (``wgmma`` fed by TMA,
+a class per head_dim, counted by ``bf16_tile_launches`` and
+``bwd_tile_launches``), which round P (K4), dO, P and dS (K5) and dO, dS
+(K6) to bf16 before their products (within 2e-2 of max|plain|; the
+logsumexp within 1e-4; the csrc headers give the reasons). Where a call's
+blocks fill few of the SMs, each kernel splits its streamed range
+into partial sums that a second launch adds in a fixed order; the wrappers
+allocate the workspace the C library asks for.
 """
 
 from __future__ import annotations
@@ -36,6 +40,16 @@ MAX_HEAD_DIM = 512
 BF16_TILES = ("<64,128>", "<128,128>", "<256,64>", "<512,64>", "merge")
 # the fields of sr3_flash_attention_fwd_plan
 PLAN_FIELDS = ("cls", "rows", "bk", "q_tiles", "key_tiles", "splits", "per")
+# K5's and K6's bfloat16 routes: their head_dim classes <DC, BN> (columns,
+# streamed rows a tile) and the merge of a split, in the order
+# sr3_flash_attention_bwd_tiles reports their launches
+BWD_TILES = ("dkv<64,64>", "dkv<128,64>", "dkv<256,32>", "dkv<512,32>",
+             "dq<64,128>", "dq<128,64>", "dq<256,64>", "dq<512,32>", "merge")
+# the fields of sr3_flash_attention_bwd_plan; the kernels by index
+BWD_PLAN_FIELDS = ("cls", "rows", "bn", "row_tiles", "col_tiles", "splits",
+                   "per")
+BWD_KERNELS = {"sr3_flash_attention_bwd_dkv": 0,
+               "sr3_flash_attention_bwd_dq": 1}
 
 
 def bf16_tile_launches(reset=False):
@@ -59,6 +73,31 @@ def fwd_plan(bh, seq, d):
                                                           out) < 0:
         raise ValueError(f"K4 does not take (bh, seq, d) = {(bh, seq, d)}")
     return dict(zip(PLAN_FIELDS, out))
+
+
+def bwd_tile_launches(reset=False):
+    """Launches of each bfloat16 class of K5 and K6 and of their merge since
+    the last reset, by BWD_TILES name; ``reset`` sets them to 0 after
+    reading. Loads the CUDA library."""
+    counts = (ctypes.c_longlong * len(BWD_TILES))()
+    n = _build.load_library().sr3_flash_attention_bwd_tiles(counts,
+                                                            int(reset))
+    if n != len(BWD_TILES):
+        raise RuntimeError(f"the library reports {n} K5 / K6 launch counts, "
+                           f"expected {len(BWD_TILES)}")
+    return dict(zip(BWD_TILES, counts))
+
+
+def bwd_plan(bh, seq, d, kernel):
+    """The bfloat16 launch plan of K5 (kernel 0) or K6 (kernel 1) for
+    (bh, seq, d) on the current device, from the C library: a dict of
+    BWD_PLAN_FIELDS."""
+    out = (ctypes.c_longlong * len(BWD_PLAN_FIELDS))()
+    if _build.load_library().sr3_flash_attention_bwd_plan(bh, seq, d, kernel,
+                                                          out) < 0:
+        raise ValueError(f"K{5 + kernel} does not take (bh, seq, d) = "
+                         f"{(bh, seq, d)}")
+    return dict(zip(BWD_PLAN_FIELDS, out))
 
 
 def attention_plain(q, k, v, scale):
@@ -174,10 +213,18 @@ def _bwd_kernel(entry, count, q, k, v, g, lse, dsum, outs, scale):
     if g.dtype != q.dtype:
         raise ValueError(f"g dtype {g.dtype} != q dtype {q.dtype}")
     bh, seq, d = q.shape
-    err = getattr(_build.load_library(), entry)(
+    lib = _build.load_library()
+    code = _build.dtype_code(q)
+    n = lib.sr3_flash_attention_bwd_workspace_floats(bh, seq, d, code,
+                                                     BWD_KERNELS[entry])
+    if n < 0:
+        raise RuntimeError(f"{entry} takes no {(bh, seq, d)} of {q.dtype}, "
+                           f"or the device could not be read")
+    ws = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dsum.data_ptr(), *(t.data_ptr() for t in outs),
-        bh, seq, d, float(scale), _build.dtype_code(q), _build.stream_of(q))
+        _build.ptr(ws), bh, seq, d, float(scale), code, _build.stream_of(q))
     _build.check(err, entry)
     count.n += 1
 

@@ -1,5 +1,5 @@
-"""The bfloat16 tensor-core routes of K4, K5 and K6 on the CPU, K4's launch
-plan, and the kernels' C signatures.
+"""The bfloat16 tensor-core routes of K4, K5 and K6 on the CPU, their
+launch plans, and the kernels' C signatures.
 
 The card's bf16 kernels round P (K4), dO, P and dS (K5) and dO, dS (K6) to
 bf16 before their products, where the plain versions, the JAX package's XLA
@@ -14,19 +14,25 @@ follows K4's wgmma kernel (``csrc/attention.cu``): per key tile of its
 head_dim class the online softmax with its running max in the base-2
 exponent, P rounded to bf16 at that tile's max, l the sum of the unrounded
 P; and, where the launch plan splits the keys, each split's unnormalised
-O, m and l merged in split order.
+O, m and l merged in split order. ``_k5_rounding`` and ``_k6_rounding``
+follow K5's and K6's wgmma kernels (``csrc/attention_bwd.cu``): per
+streamed tile of their plan (K5: queries, K6: keys) X and Y, added from
+the two warpgroups' halves of D where the class splits D, P in the base-2
+exponent and dS in float32, P and dS rounded to bf16 before their
+products, and each split's partial sums added in split order.
 
-K4's launch plan is mirrored in ``tests/torch_port_attention_plan.py``;
-the tests here check that its blocks cover every (query, key) pair once,
+The launch plans are mirrored in ``tests/torch_port_attention_plan.py``;
+the tests here check that their blocks cover every (query, key) pair once,
 that every head_dim the wrapper takes maps to a class the C source
-instantiates, and that the merge order is fixed.
+instantiates, and that the merges' order is fixed.
 
 The last tests guard the ctypes boundary: every ``extern "C"`` entry of
 ``csrc/*.cu`` against the ctypes signatures in ``_build._SIGNATURES`` (a
 changed C signature cannot reach ctypes mismatched), the order in which
-the library counts K1's bfloat16 tiles against ``conv_fused.BF16_TILES``
-and K4's classes against ``attention.BF16_TILES``, and the backward
-launcher's refusal of a dO in another dtype than q.
+the library counts K1's bfloat16 tiles against ``conv_fused.BF16_TILES``,
+K4's classes against ``attention.BF16_TILES`` and K5's / K6's against
+``attention.BWD_TILES``, and the backward launcher's refusal of a dO in
+another dtype than q.
 """
 
 import ctypes
@@ -130,28 +136,81 @@ def _k4_rounding(q, k, v, scale):
     return _k4_merge(_k4_partials(q, k, v, scale))
 
 
-def _k5_rounding(q, k, v, g, lse, dsum, scale):
-    """(dk, dv) as K5's bf16 route computes them: dO rounded to bf16 once,
-    P and dS in float32, rounded to bf16 before dV += P^T dO and
-    dK += dS^T Q."""
+def _bwd_product(a, b, split_d, dc):
+    """a b^T (bh, n, m) in float32 as the backward kernels form X and Y:
+    over all of D, or (split_d) as the sum of the two warpgroups' partials
+    over the halves of the class's DC columns (the columns past D are 0)."""
+    if not split_d:
+        return torch.einsum("bnd,bmd->bnm", a, b)
+    h = dc // 2
+    return (torch.einsum("bnd,bmd->bnm", a[..., :h], b[..., :h])
+            + torch.einsum("bnd,bmd->bnm", a[..., h:], b[..., h:]))
+
+
+def _bwd_partials(q, k, v, g, lse, dsum, scale, kernel):
+    """Each split's float32 partial sums as K5's (kernel 0: (dk, dv)) or
+    K6's (kernel 1: (dq,)) wgmma kernel leaves them, in split order: per
+    streamed tile of the plan (K5: queries, K6: keys) X and Y (split-d
+    partials added where the class splits D), P = 2^(X * scale * log2(e) -
+    lse * log2(e)), dS = P (Y - dsum) * scale in float32, P and dS rounded
+    to bf16 before dV += P^T dO, dK += dS^T Q, dQ += dS K, summed in tile
+    order; dO rounded to bf16 once, as the wrapper does."""
+    bh, seq, d = q.shape
+    p = plan_mirror.bwd_plan(bh, seq, d, kernel)
+    dc = plan_mirror.BWD_CLASS_DC[p["cls"]]
+    split_d = p["rows"] == 64
     g16 = _bf16(g)
-    p = torch.exp(torch.einsum("bqd,bkd->bqk", q, k) * scale - lse[..., None])
-    dp = torch.einsum("bqd,bkd->bqk", g16, v)
-    ds = p * (dp - dsum[..., None]) * scale
-    dv = torch.einsum("bqk,bqd->bkd", _bf16(p), g16)
-    dk = torch.einsum("bqk,bqd->bkd", _bf16(ds), q)
-    return dk, dv
+    c = scale * math.log2(math.e)
+    l2 = lse * math.log2(math.e)
+    parts = []
+    for z in range(p["splits"]):
+        acc = [torch.zeros(bh, seq, d) for _ in range(2 - kernel)]
+        for t in range(z * p["per"], min(p["col_tiles"], (z + 1) * p["per"])):
+            c0, c1 = t * p["bn"], min(seq, (t + 1) * p["bn"])
+            if kernel == 0:  # rows: keys, columns: this tile's queries
+                x = _bwd_product(k, q[:, c0:c1], split_d, dc)
+                y = _bwd_product(v, g16[:, c0:c1], split_d, dc)
+                pr = torch.exp2(x * c - l2[:, None, c0:c1])
+                ds = pr * (y - dsum[:, None, c0:c1]) * scale
+                acc[0] = acc[0] + torch.einsum("bkq,bqd->bkd", _bf16(ds),
+                                               q[:, c0:c1])
+                acc[1] = acc[1] + torch.einsum("bkq,bqd->bkd", _bf16(pr),
+                                               g16[:, c0:c1])
+            else:  # rows: queries, columns: this tile's keys
+                x = _bwd_product(q, k[:, c0:c1], split_d, dc)
+                y = _bwd_product(g16, v[:, c0:c1], split_d, dc)
+                pr = torch.exp2(x * c - l2[..., None])
+                ds = pr * (y - dsum[..., None]) * scale
+                acc[0] = acc[0] + torch.einsum("bqk,bkd->bqd", _bf16(ds),
+                                               k[:, c0:c1])
+        parts.append(acc)
+    return parts
+
+
+def _bwd_merge(parts):
+    """Each output the sum of the splits' partials in split order, as
+    flash_bwd_merge_kernel adds them (one split: its sums)."""
+    out = list(parts[0])
+    for part in parts[1:]:
+        out = [a + b for a, b in zip(out, part)]
+    return out
+
+
+def _k5_rounding(q, k, v, g, lse, dsum, scale):
+    """(dk, dv) as K5's bf16 route computes them: _bwd_partials merged."""
+    return tuple(_bwd_merge(_bwd_partials(q, k, v, g, lse, dsum, scale, 0)))
 
 
 def _k6_rounding(q, k, v, g, lse, dsum, scale):
-    """dq as K6's bf16 route computes it: dO rounded to bf16 once, P and dS
-    in float32 (the scale applied after the products), dS rounded to bf16
-    before dQ += dS K."""
-    g16 = _bf16(g)
-    p = torch.exp(torch.einsum("bqd,bkd->bqk", q, k) * scale - lse[..., None])
-    dp = torch.einsum("bqd,bkd->bqk", g16, v)
-    ds = p * (dp - dsum[..., None]) * scale
-    return torch.einsum("bqk,bkd->bqd", _bf16(ds), k)
+    """dq as K6's bf16 route computes it: _bwd_partials merged."""
+    return _bwd_merge(_bwd_partials(q, k, v, g, lse, dsum, scale, 1))[0]
+
+
+def _bwd_refs(q, k, v, g, scale):
+    """jax.vjp of attention_xla at the same inputs: (dq, dk, dv)."""
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    _, vjp = jax.vjp(lambda a, b, c: attention_xla(a, b, c, scale), jq, jk, jv)
+    return vjp(jnp.asarray(g.numpy()))
 
 
 @pytest.mark.parametrize("bh,seq,d", [
@@ -181,13 +240,30 @@ def test_k4_bf16_rounding_within_the_card_tolerance(bh, seq, d):
     assert _rel(plain_lse, ref_lse) <= TOL_EXACT
 
 
-@pytest.mark.parametrize("seq", [256, 1024])
-def test_k5_bf16_rounding_within_the_card_tolerance(seq):
-    q, k, v, g = _inputs(30 + seq, 2, seq)
-    scale = D ** -0.5
-    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
-    _, vjp = jax.vjp(lambda a, b, c: attention_xla(a, b, c, scale), jq, jk, jv)
-    ref_dq, ref_dk, ref_dv = vjp(jnp.asarray(g.numpy()))
+# (bh, seq, head_dim) of K5 / K6: every class, ragged lengths, head_dims
+# under their class's width and splits of the streamed tiles
+BWD_CASES = [
+    pytest.param(2, 256, 512, id="256"),     # K5 and K6 split in 2
+    pytest.param(2, 1024, 512, id="1024"),   # split in 4
+    pytest.param(2, 64, 512, id="64"),       # one tile pair
+    pytest.param(2, 100, 512, id="100"),     # ragged: no 32-row tile full
+    pytest.param(8, 256, 128, id="8-256-128"),
+    pytest.param(2, 100, 128, id="2-100-128"),   # ragged, one tile
+    pytest.param(4, 700, 128, id="4-700-128"),   # ragged, K5 split in 2
+    pytest.param(2, 300, 192, id="2-300-192"),   # d under its class
+    pytest.param(2, 300, 256, id="2-300-256"),   # ragged, split-d K5
+    pytest.param(8, 16, 256, id="8-16-256"),     # under one tile
+    pytest.param(1, 2048, 256, id="1-2048-256"),  # K5 split in 4
+    pytest.param(3, 100, 64, id="3-100-64"),
+    pytest.param(2, 1000, 512, id="2-1000-512"),  # ragged, split
+]
+
+
+@pytest.mark.parametrize("bh,seq,d", BWD_CASES)
+def test_k5_bf16_rounding_within_the_card_tolerance(bh, seq, d):
+    q, k, v, g = _inputs(30 + seq + d, bh, seq, d)
+    scale = d ** -0.5
+    ref_dq, ref_dk, ref_dv = _bwd_refs(q, k, v, g, scale)
     # lse and dsum as the card's backward gets them: the bf16 forward's
     o, lse = _k4_rounding(q, k, v, scale)
     dk, dv = _k5_rounding(q, k, v, g, lse, (g * o).sum(-1), scale)
@@ -200,15 +276,13 @@ def test_k5_bf16_rounding_within_the_card_tolerance(seq):
         assert _rel(ours, ref) <= TOL_EXACT
 
 
-@pytest.mark.parametrize("seq", [256, 64, 100])
-def test_k6_bf16_rounding_within_the_card_tolerance(seq):
-    """The 16->128 path's 256 and 64 tokens, and a length that fills no
-    32-query or 32-key tile."""
-    q, k, v, g = _inputs(40 + seq, 2, seq)
-    scale = D ** -0.5
-    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
-    _, vjp = jax.vjp(lambda a, b, c: attention_xla(a, b, c, scale), jq, jk, jv)
-    ref_dq = vjp(jnp.asarray(g.numpy()))[0]
+@pytest.mark.parametrize("bh,seq,d", BWD_CASES)
+def test_k6_bf16_rounding_within_the_card_tolerance(bh, seq, d):
+    """The 16->128 path's 256 and 64 tokens, lengths that fill no tile, and
+    every class of K6 with its splits."""
+    q, k, v, g = _inputs(40 + seq + d, bh, seq, d)
+    scale = d ** -0.5
+    ref_dq = _bwd_refs(q, k, v, g, scale)[0]
     # lse and dsum as the card's backward gets them: the bf16 forward's
     o, lse = _k4_rounding(q, k, v, scale)
     dq = _k6_rounding(q, k, v, g, lse, (g * o).sum(-1), scale)
@@ -315,6 +389,122 @@ def test_k4_merge_order_is_fixed():
     assert _rel(c[0], a[0]) <= TOL_EXACT
 
 
+@pytest.mark.parametrize("kernel", [0, 1], ids=["k5", "k6"])
+@pytest.mark.parametrize("bh,seq,d", PLAN_SHAPES + [(4, 256, 512),
+                                                    (16, 256, 512),
+                                                    (16, 64, 512),
+                                                    (4, 700, 128),
+                                                    (1, 2048, 256)])
+def test_bwd_plan_covers_every_query_key_pair_once(bh, seq, d, kernel):
+    """The blocks of K5's or K6's launch (row tile, head, split) give each
+    head's resident rows (K5: keys, K6: queries) to exactly one tile, and
+    each (head, row tile) the streamed tiles (K5: queries, K6: keys) of
+    [0, seq) exactly once over its splits, in order: every (query, key)
+    pair once."""
+    p = plan_mirror.bwd_plan(bh, seq, d, kernel)
+    blocks = plan_mirror.bwd_blocks_of(bh, seq, d, kernel)
+    assert len(blocks) == p["row_tiles"] * bh * p["splits"]
+    assert p["splits"] <= plan_mirror.MAX_SPLITS
+    by_tile = {}
+    for h, rows, cols, z in blocks:
+        assert cols, "every split runs at least one streamed tile"
+        if p["splits"] > 1:
+            assert len(cols) >= plan_mirror.MIN_SPLIT_TILES or \
+                z == p["splits"] - 1
+        by_tile.setdefault((h, rows), []).append((z, cols))
+    for h in range(bh):
+        assert _covered([r for hh, r in by_tile if hh == h], seq)
+    for (h, rows), splits in by_tile.items():
+        assert sorted(z for z, _ in splits) == list(range(p["splits"]))
+        ranges = [r for _, cols in sorted(splits) for r in cols]
+        assert ranges == sorted(ranges)  # split z's tiles precede z + 1's
+        assert _covered(ranges, seq)
+    # a split only where the blocks fill at most a quarter of the SMs
+    assert (p["splits"] > 1) <= (4 * p["row_tiles"] * bh <= plan_mirror.SMS)
+
+
+def _c_array(src, name):
+    m = re.search(name + r"\[kClasses\] = \{([^}]*)\}", src)
+    return tuple(int(x) for x in m.group(1).split(","))
+
+
+def test_bwd_every_head_dim_has_an_instantiated_class():
+    """Each head_dim the wrapper takes maps to a class at least as wide for
+    K5 and K6; csrc/attention_bwd.cu's class tables are the mirror's and
+    the launcher instantiates each (kernel, class) once, in BWD_TILES'
+    order; the K5 classes whose dK and dV would pass 128 registers a
+    thread take two passes, the others one."""
+    with open(os.path.join(_build.CSRC_DIR, "attention_bwd.cu")) as f:
+        src = f.read()
+    assert _c_array(src, "kClassDC") == plan_mirror.BWD_CLASS_DC
+    assert (_c_array(src, "kDkvBN"), _c_array(src, "kDqBN")) == \
+        plan_mirror.BWD_BN
+    assert (_c_array(src, "kDkvRows"), _c_array(src, "kDqRows")) == \
+        plan_mirror.BWD_ROWS
+    assert "kClasses = 4;" in src
+    launched = re.findall(r"(case (\d+)|default): return launch_class<(\d), "
+                          r"(\d)>", src)
+    assert [(int(k), int(c)) for _, _, k, c in launched] == [
+        (k, c) for k in (0, 1) for c in range(4)]
+    names = tuple(f"{kind}<{dc},{bn}>" for kind, bns in
+                  (("dkv", plan_mirror.BWD_BN[0]), ("dq", plan_mirror.BWD_BN[1]))
+                  for dc, bn in zip(plan_mirror.BWD_CLASS_DC, bns))
+    assert attention.BWD_TILES == names + ("merge",)
+    assert [plan_mirror.bwd_passes(dc, 0) for dc in
+            plan_mirror.BWD_CLASS_DC] == [1, 1, 1, 2]
+    assert all(plan_mirror.bwd_passes(dc, 1) == 1
+               for dc in plan_mirror.BWD_CLASS_DC)
+    for d in range(16, attention.MAX_HEAD_DIM + 1, 16):
+        cls = plan_mirror.head_dim_class(d)
+        assert d <= plan_mirror.BWD_CLASS_DC[cls]
+        assert cls == 0 or d > plan_mirror.BWD_CLASS_DC[cls - 1]
+        for kernel in (0, 1):
+            assert plan_mirror.bwd_plan(3, 77, d, kernel)["cls"] == cls
+
+
+def test_bwd_merge_order_is_fixed():
+    """The merge adds the splits' partials in index order (its loop over z
+    ascends, no atomics); the emulated merge of the same partials gives the
+    same bits every time, and another order other bits: the order is part
+    of the result, which is why it is fixed."""
+    with open(os.path.join(_build.CSRC_DIR, "attention_bwd.cu")) as f:
+        src = f.read()
+    merge = src[src.index("flash_bwd_merge_kernel(const float"):]
+    merge = merge[:merge.index("\n}\n")]
+    assert "for (int z = 1; z < splits; ++z)" in merge
+    kernel_src = src[src.index("flash_bwd_wgmma_kernel(const"):]
+    kernel_src = kernel_src[:kernel_src.index("\n}\n")]
+    assert "atomic" not in merge and "atomic" not in kernel_src
+    q, k, v, g = _inputs(8, 2, 1024, D)
+    scale = D ** -0.5
+    o, lse = _k4_rounding(q, k, v, scale)
+    dsum = (g * o).sum(-1)
+    for kernel in (0, 1):
+        parts = _bwd_partials(q, k, v, g, lse, dsum, scale, kernel)
+        assert len(parts) == plan_mirror.bwd_plan(2, 1024, D,
+                                                  kernel)["splits"] == 4
+        a, b = _bwd_merge(parts), _bwd_merge(parts)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        c = _bwd_merge(parts[::-1])
+        assert not all(torch.equal(x, y) for x, y in zip(a, c))
+        assert max(_rel(y, x) for x, y in zip(a, c)) <= TOL_EXACT
+
+
+def test_bwd_tile_order_matches_the_library():
+    """sr3_flash_attention_bwd_tiles counts K5's classes, then K6's, then
+    the merge, in BWD_TILES' order."""
+    with open(os.path.join(_build.CSRC_DIR, "attention_bwd.cu")) as f:
+        src = f.read()
+    assert "return 2 * kClasses + 1;" in src
+    assert "g_bwd_launches[2 * kClasses + 1];" in src
+    assert "g_bwd_launches[kKernel * kClasses + kCls].fetch_add" in src
+    assert "g_bwd_launches[2 * kClasses].fetch_add" in src  # the merge
+    assert len(attention.BWD_TILES) == 2 * 4 + 1
+    assert attention.BWD_PLAN_FIELDS == plan_mirror.BWD_FIELDS
+    assert attention.BWD_KERNELS == {"sr3_flash_attention_bwd_dkv": 0,
+                                     "sr3_flash_attention_bwd_dq": 1}
+
+
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
             "long long": ctypes.c_longlong}
 
@@ -338,6 +528,15 @@ def test_extern_c_signatures_match_ctypes():
             found[name] = ([_ctype(a) for a in args.split(",")],
                            _ctype(ret + " result"))
     assert set(found) == set(_build._SIGNATURES)
+    # the backward kernels' entries: a workspace after the outputs, the
+    # workspace size, the plan and the launch counts
+    for name in ("sr3_flash_attention_bwd_dkv", "sr3_flash_attention_bwd_dq",
+                 "sr3_flash_attention_bwd_workspace_floats",
+                 "sr3_flash_attention_bwd_plan",
+                 "sr3_flash_attention_bwd_tiles"):
+        assert name in found, name
+    assert len(found["sr3_flash_attention_bwd_dkv"][0]) == 15
+    assert len(found["sr3_flash_attention_bwd_dq"][0]) == 14
     for name, (argtypes, restype) in _build._SIGNATURES.items():
         assert len(found[name][0]) == len(argtypes), name
         assert found[name] == (list(argtypes), restype), name

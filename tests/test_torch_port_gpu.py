@@ -11,7 +11,9 @@ Tolerances, relative to max|plain|: float32 1e-4 for K1, K4, K5 and K6 and
 bfloat16 2e-2 for K1, K2 and the route (the plain version rounds
 intermediate results to bf16, 2^-8 relative each, where a kernel rounds
 once), 2e-2 for K4's output, K5's dk, dv and K6's dq (their tensor-core
-routes round P, dO, P, dS, and dO, dS to bf16 before the products), and
+routes round P, dO, P, dS, and dO, dS to bf16 before the products; each
+bf16 K4 / K5 / K6 check also holds the classes it launched against the
+plan mirror), and
 1e-4 for K4's logsumexp (both sides compute it in float32 from the same
 inputs). The reasons are spelled out in each kernel's source header. The autograd
 Functions against autograd of the plain versions: float32 1e-4; bfloat16
@@ -330,11 +332,29 @@ def test_k4_plan_matches_the_cpu_emulation(gen):
             bh, seq, d, sms), (bh, seq, d)
 
 
+# K5 / K6 shapes: every bf16 class of both (head_dim 64, 128, 256, 512 and
+# under their widths: 80, 192, 384), with and without a split of the
+# streamed tiles (4x256x512, 2x1024x512, 4x700x128, 1x2048x256), ragged
+# lengths, the 16->128 train step's shapes at batch 4 and 16, and 8x16x256
+BWD_CASES = [(4, 256, 512), (4, 64, 512), (3, 100, 64), (2, 4096, 512),
+             (1, 16384, 256), (8, 256, 128), (2, 300, 192), (2, 100, 80),
+             (8, 16, 256), (2, 1024, 512), (4, 700, 128), (1, 2048, 256),
+             (2, 130, 384), (16, 256, 512), (16, 64, 512), (2, 1000, 512)]
+
+
+def _bwd_launched(bh, seq, d):
+    """K5's and K6's bf16 launches the mirror's plans expect for one
+    attention_bwd."""
+    want = {name: 0 for name in attention.BWD_TILES}
+    for kernel in (0, 1):
+        p = plan_mirror.bwd_plan(bh, seq, d, kernel)
+        want[attention.BWD_TILES[4 * kernel + p["cls"]]] += 1
+        want["merge"] += int(p["splits"] > 1)
+    return want
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,seq,d", [(4, 256, 512), (4, 64, 512),
-                                      (3, 100, 64), (2, 4096, 512),
-                                      (1, 16384, 256), (8, 256, 128),
-                                      (2, 300, 192), (2, 100, 80)])
+@pytest.mark.parametrize("bh,seq,d", BWD_CASES)
 def test_k4_lse_k5_k6_match_plain(gen, dtype, bh, seq, d):
     q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=gen)
                .to(dtype) for _ in range(3))
@@ -345,13 +365,50 @@ def test_k4_lse_k5_k6_match_plain(gen, dtype, bh, seq, d):
     assert rel(o, ref_o) <= TOL[dtype]["k4"]
     assert rel(lse, ref_lse) <= TOL[dtype]["lse"]
     dsum = (g * o).sum(-1)
+    attention.bwd_tile_launches(reset=True)
     grads = attention.attention_bwd(q, k, v, g, lse, dsum, d ** -0.5)
+    launched = attention.bwd_tile_launches(reset=True)
+    if dtype == torch.bfloat16:
+        assert launched == _bwd_launched(bh, seq, d)
+    else:
+        assert not any(launched.values())
     refs = attention.attention_bwd_plain(q, k, v, g, lse, dsum, d ** -0.5)
     assert (attention.counter.n, attention.dkv_counter.n,
             attention.dq_counter.n) == (n[0] + 1, n[1] + 1, n[2] + 1)
     for out, ref, kernel in zip(grads, refs, ("k6", "k5", "k5")):
         assert out.dtype == torch.float32
         assert rel(out, ref) <= TOL[dtype][kernel]
+
+
+@pytest.mark.parametrize("bh,seq,d", [(4, 256, 512), (2, 1024, 512),
+                                      (1, 2048, 256), (4, 700, 128),
+                                      (2, 4096, 512), (8, 16, 256)])
+def test_k5_k6_two_calls_bit_identical(gen, bh, seq, d):
+    """The bf16 routes sum in a fixed order, splits and merges included:
+    two calls on the same inputs give the same bits of dq, dk and dv."""
+    q, k, v = (torch.randn(bh, seq, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    g = torch.randn(bh, seq, d, device="cuda", generator=gen)
+    o, lse = attention.attention_fwd(q, k, v, d ** -0.5)
+    dsum = (g * o).sum(-1)
+    first = attention.attention_bwd(q, k, v, g, lse, dsum, d ** -0.5)
+    second = attention.attention_bwd(q, k, v, g, lse, dsum, d ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+def test_bwd_plan_matches_the_cpu_emulation(gen):
+    """The C library's K5 and K6 plans are the ones
+    tests/torch_port_attention_plan.py mirrors, on this card's SM count."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bh, seq, d in BWD_CASES + [(8, 1024, 512), (8, 4096, 512),
+                                   (1, 77, 16), (5, 1000, 512)]:
+        for kernel in (0, 1):
+            assert attention.bwd_plan(bh, seq, d, kernel) == \
+                plan_mirror.bwd_plan(bh, seq, d, kernel, sms), \
+                (bh, seq, d, kernel)
 
 
 def _function_case(gen, op, dtype):
