@@ -23,12 +23,17 @@ chains' tables, computed in float32 from the schedule as the JAX package
 computes them) are indexed on the device, and noise is drawn on the device
 from ``torch.Generator``s. Every chain takes ``noise_stream=(init, steps)``
 to replace its draws (the parity-test seam). Image tensors are NCHW float32.
+Each step of a chain is a ``chain.step`` span holding a ``chain.eps`` span
+around the network's call, both with the step's ``t``
+(``utils/profiler.py``: recorded only under a profiler).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from sr3_tpu_torch.utils.profiler import span
 
 CL = torch.channels_last
 
@@ -153,19 +158,21 @@ class GaussianDiffusion:
                       clip_denoised=True, noise=None, generator=None):
         """One reverse step x_t -> x_{t-1}. ``t`` is a host int. ``noise``
         overrides the draw from ``generator`` (the parity-test seam)."""
-        eps = self._eps_at(net, sched, img, t, condition_x)
-        x_recon = (sched.sqrt_recip_alphas_cumprod[t] * img
-                   - sched.sqrt_recipm1_alphas_cumprod[t] * eps)
-        if clip_denoised:
-            x_recon = x_recon.clamp(-1.0, 1.0)
-        mean = (sched.posterior_mean_coef1[t] * x_recon
-                + sched.posterior_mean_coef2[t] * img)
-        if t == 0:  # the last step adds no noise
-            return mean
-        if noise is None:
-            noise = randn(img.shape, generator, img.device)
-        return mean + torch.exp(0.5 * sched.posterior_log_variance_clipped[t]) \
-            * noise
+        with span("chain.step", img, t=t):
+            with span("chain.eps", img, t=t):
+                eps = self._eps_at(net, sched, img, t, condition_x)
+            x_recon = (sched.sqrt_recip_alphas_cumprod[t] * img
+                       - sched.sqrt_recipm1_alphas_cumprod[t] * eps)
+            if clip_denoised:
+                x_recon = x_recon.clamp(-1.0, 1.0)
+            mean = (sched.posterior_mean_coef1[t] * x_recon
+                    + sched.posterior_mean_coef2[t] * img)
+            if t == 0:  # the last step adds no noise
+                return mean
+            if noise is None:
+                noise = randn(img.shape, generator, img.device)
+            return mean + torch.exp(
+                0.5 * sched.posterior_log_variance_clipped[t]) * noise
 
     def _chain_start(self, net, x_in, generator, noise_stream):
         """(condition or None, shape, initial image, step noises or None)
@@ -245,16 +252,18 @@ class GaussianDiffusion:
 
         img0, snaps = img, []
         for i, t in enumerate(tau[::-1].tolist()):
-            eps = self._eps_at(net, sched, img, t, condition_x)
-            x0 = (img - sqrt_1mab[i] * eps) / sqrt_ab[i]
-            if clip_denoised:
-                x0 = x0.clamp(-1.0, 1.0)
-                eps = (img - sqrt_ab[i] * x0) / sqrt_1mab[i]
-            img = sqrt_ab_prev[i] * x0 + dir_coef[i] * eps
-            if eta > 0:
-                noise = (randn(shape, generator, img.device)
-                         if step_noises is None else step_noises[i])
-                img = img + sigma[i] * noise
+            with span("chain.step", img, t=t):
+                with span("chain.eps", img, t=t):
+                    eps = self._eps_at(net, sched, img, t, condition_x)
+                x0 = (img - sqrt_1mab[i] * eps) / sqrt_ab[i]
+                if clip_denoised:
+                    x0 = x0.clamp(-1.0, 1.0)
+                    eps = (img - sqrt_ab[i] * x0) / sqrt_1mab[i]
+                img = sqrt_ab_prev[i] * x0 + dir_coef[i] * eps
+                if eta > 0:
+                    noise = (randn(shape, generator, img.device)
+                             if step_noises is None else step_noises[i])
+                    img = img + sigma[i] * noise
             if continuous and (S - 1 - i) % inter == 0:
                 snaps.append(img)
         return self._frames(condition_x, img0, snaps) if continuous else img
@@ -308,17 +317,19 @@ class GaussianDiffusion:
 
         img0, snaps, x0_prev = img, [], None
         for i, t in enumerate(tau_desc.tolist()):
-            eps = self._eps_at(net, sched, img, t, condition_x)
-            x0 = (img - s_cur[i] * eps) / a_cur[i]
-            if clip_denoised:
-                x0 = x0.clamp(-1.0, 1.0)
-            new = c_lin[i] * img + c_d[i] * x0
-            if x0_prev is not None:
-                new = new + c_d1[i] * (x0 - x0_prev)
-            if eta > 0:
-                noise = (randn(shape, generator, img.device)
-                         if step_noises is None else step_noises[i])
-                new = new + c_noise[i] * noise
+            with span("chain.step", img, t=t):
+                with span("chain.eps", img, t=t):
+                    eps = self._eps_at(net, sched, img, t, condition_x)
+                x0 = (img - s_cur[i] * eps) / a_cur[i]
+                if clip_denoised:
+                    x0 = x0.clamp(-1.0, 1.0)
+                new = c_lin[i] * img + c_d[i] * x0
+                if x0_prev is not None:
+                    new = new + c_d1[i] * (x0 - x0_prev)
+                if eta > 0:
+                    noise = (randn(shape, generator, img.device)
+                             if step_noises is None else step_noises[i])
+                    new = new + c_noise[i] * noise
             img, x0_prev = new, x0
             if continuous and (S - 1 - i) % inter == 0:
                 snaps.append(img)

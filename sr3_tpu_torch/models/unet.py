@@ -36,7 +36,9 @@ inputs and recomputes its activations in the backward
 block's dropout draws: it runs on a copy of the generator taken at the
 block's start, so it draws the same masks and leaves the generator where
 the first forward left it. The kernels launch again in the recompute, and
-their counters count it.
+their counters count it, as do the counters of Blocks by route
+(``block.fused``: K1; ``block.split``: GroupNorm, dropout and a plain conv;
+``utils/profiler.py``).
 
 ``UNet.set_parallel(mesh)`` lays the network out on a mesh
 (``sr3_tpu_torch/parallel``): on the model axis every conv / linear /
@@ -67,8 +69,12 @@ from sr3_tpu_torch.ops.dropout import dropout
 from sr3_tpu_torch.ops.groupnorm import group_norm, group_norm_space
 from sr3_tpu_torch.parallel import sharding_rules as tp
 from sr3_tpu_torch.parallel import spatial
+from sr3_tpu_torch.utils.profiler import Counter
 
 CL = torch.channels_last
+# Blocks run through K1, and through GroupNorm -> dropout -> conv
+fused_blocks = Counter("block.fused")
+split_blocks = Counter("block.split")
 
 
 def positional_encoding(cond, dim):
@@ -157,6 +163,7 @@ class Block(nn.Module):
         norm, conv = self.block[0], self.block[3]
         gw, gb = _affine(norm)
         if not (self.training and self.dropout):
+            fused_blocks.n += 1
             axis = getattr(conv, "tp", None)
             if axis is not None:
                 # the output channel slice of the sharded weight, from the
@@ -175,6 +182,7 @@ class Block(nn.Module):
                     x, gw, gb, conv.weight, conv.bias, self.groups,
                     pre_bias=pre_bias, residual=residual)
             return y if axis is None else tp.gather_channels(y, axis)
+        split_blocks.n += 1
         if pre_bias is not None:
             x = x + pre_bias[:, :, None, None].to(x.dtype)
         x = x.contiguous(memory_format=CL)

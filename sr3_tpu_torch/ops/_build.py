@@ -82,17 +82,6 @@ _SIGNATURES = {
 _lib = None
 
 
-class LaunchCount:
-    """Number of times one kernel wrapper launched its kernel."""
-
-    def __init__(self, name):
-        self.name = name
-        self.n = 0
-
-    def __repr__(self):
-        return f"LaunchCount({self.name}={self.n})"
-
-
 def find_nvcc():
     """nvcc from $CUDA_HOME / $CUDA_PATH, then $PATH, then the default
     toolkit location; None when there is none."""

@@ -29,10 +29,11 @@ import ctypes
 import torch
 
 from sr3_tpu_torch.ops import _build
+from sr3_tpu_torch.utils.profiler import Counter
 
-counter = _build.LaunchCount("flash_attention_fwd")
-dkv_counter = _build.LaunchCount("flash_attention_bwd_dkv")
-dq_counter = _build.LaunchCount("flash_attention_bwd_dq")
+counter = Counter("flash_attention_fwd")
+dkv_counter = Counter("flash_attention_bwd_dkv")
+dq_counter = Counter("flash_attention_bwd_dq")
 MAX_HEAD_DIM = 512
 # K4's bfloat16 route: its head_dim classes <DC, BK> (columns, keys a tile)
 # and the merge of a key split, in the order sr3_flash_attention_fwd_tiles

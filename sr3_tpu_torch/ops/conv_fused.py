@@ -8,7 +8,8 @@ dtype, conv3x3 with padding 1 and bias, then the residual.
 ``gn_silu_conv3x3`` runs it for a CPU tensor and launches the Hopper kernel
 for a CUDA tensor. It is differentiable: as ``_fused_fwd_bwd`` does, the
 backward recomputes the plain version under autograd (the residual's
-gradient is the output gradient). Activations are logical NCHW in
+gradient is the output gradient), in an ``ops.plain_backward`` span
+(``utils/profiler.py``). Activations are logical NCHW in
 ``torch.channels_last`` memory; the conv weight is torch's (Cout, Cin, 3,
 3), also channels_last (physically (Cout, 3, 3, Cin), the layout the kernel
 reads).
@@ -34,8 +35,9 @@ from sr3_tpu_torch.ops import _build
 from sr3_tpu_torch.ops.groupnorm import (check_channels_last,
                                          group_norm_plain, space_stats,
                                          stats_workspace)
+from sr3_tpu_torch.utils.profiler import Counter, span
 
-counter = _build.LaunchCount("gn_silu_conv3x3")
+counter = Counter("gn_silu_conv3x3")
 # The bfloat16 kernel's tiles <TW, NI, BN> (tile width, images per block,
 # output channels per block), in the order sr3_gn_silu_conv3x3_tiles
 # reports their launches.
@@ -160,24 +162,28 @@ class _GnSiluConv3x3(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad[:7]
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            x, gw, gb, w, cb, ps, pb = leaves
-            y = gn_silu_conv3x3_plain(x, gw, gb, w, cb, *ctx.cfg,
-                                      pre_scale=ps, pre_bias=pb)
-            wrt = [t for t in leaves if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
-        out = [next(grads) if t is not None and t.requires_grad else None
-               for t in leaves]
-        dres = g.to(ctx.residual_dtype) if ctx.needs_input_grad[7] else None
+        # unpacked outside the span: it may replay a remat block's forward
+        saved = ctx.saved_tensors
+        with span("ops.plain_backward", g, op="gn_silu_conv3x3"):
+            need = ctx.needs_input_grad[:7]
+            with torch.enable_grad():
+                leaves = [None if t is None else t.detach().requires_grad_(n)
+                          for t, n in zip(saved, need)]
+                x, gw, gb, w, cb, ps, pb = leaves
+                y = gn_silu_conv3x3_plain(x, gw, gb, w, cb, *ctx.cfg,
+                                          pre_scale=ps, pre_bias=pb)
+                wrt = [t for t in leaves if t is not None and t.requires_grad]
+                grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+            out = [next(grads) if t is not None and t.requires_grad else None
+                   for t in leaves]
+            dres = (g.to(ctx.residual_dtype) if ctx.needs_input_grad[7]
+                    else None)
         return (*out, dres, None, None)
 
 
 # ---------------------------------------------------- the halo entry (space)
 
-halo_counter = _build.LaunchCount("gn_silu_conv3x3_halo")
+halo_counter = Counter("gn_silu_conv3x3_halo")
 
 
 def _act(t, mult, add, dtype):
@@ -263,16 +269,19 @@ class _GnSiluConv3x3Halo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad[:7]
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            y = gn_silu_conv3x3_halo_plain(*leaves)
-            wrt = [t for t in leaves if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
-        out = [next(grads) if t is not None and t.requires_grad else None
-               for t in leaves]
-        dres = g.to(ctx.residual_dtype) if ctx.needs_input_grad[7] else None
+        saved = ctx.saved_tensors
+        with span("ops.plain_backward", g, op="gn_silu_conv3x3_halo"):
+            need = ctx.needs_input_grad[:7]
+            with torch.enable_grad():
+                leaves = [None if t is None else t.detach().requires_grad_(n)
+                          for t, n in zip(saved, need)]
+                y = gn_silu_conv3x3_halo_plain(*leaves)
+                wrt = [t for t in leaves if t is not None and t.requires_grad]
+                grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+            out = [next(grads) if t is not None and t.requires_grad else None
+                   for t in leaves]
+            dres = (g.to(ctx.residual_dtype) if ctx.needs_input_grad[7]
+                    else None)
         return (*out, dres)
 
 

@@ -7,7 +7,8 @@ one-pass sum / sum-of-squares statistics, variance clamped at 0, eps 1e-5);
 ``group_norm`` runs it for a CPU tensor and launches the Hopper kernel for a
 CUDA tensor. ``group_norm`` is differentiable: its backward is the JAX
 package's hand formula (``_gn_swish_fwd_bwd``), ``group_norm_bwd_plain``, in
-plain PyTorch on either device, as it is XLA and not a Pallas kernel there.
+plain PyTorch on either device, as it is XLA and not a Pallas kernel there
+(an ``ops.plain_backward`` span, ``utils/profiler.py``).
 
 On maps of H*W >= 256^2 (``STATS_MIN_HW``) ``group_norm`` takes the
 statistics route instead, the counterpart of ``_gn_swish_stats_fwd_bwd``:
@@ -37,9 +38,10 @@ import ctypes
 import torch
 
 from sr3_tpu_torch.ops import _build
+from sr3_tpu_torch.utils.profiler import Counter, span
 
-counter = _build.LaunchCount("group_norm")
-stats_counter = _build.LaunchCount("gn_stats")
+counter = Counter("group_norm")
+stats_counter = Counter("gn_stats")
 # maps of at least this many pixels take the statistics route (K3)
 STATS_MIN_HW = 256 * 256
 # channels K1's and K2's GroupNorm kernels take (kGnMaxChannels, common.cuh)
@@ -213,8 +215,10 @@ class _GroupNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight, bias = ctx.saved_tensors
-        dx, dw, db = group_norm_bwd_plain(x, weight, bias, g, *ctx.cfg)
-        return dx, dw.to(weight.dtype), db.to(bias.dtype), None, None, None
+        with span("ops.plain_backward", g, op="group_norm"):
+            dx, dw, db = group_norm_bwd_plain(x, weight, bias, g, *ctx.cfg)
+            dw, db = dw.to(weight.dtype), db.to(bias.dtype)
+        return dx, dw, db, None, None, None
 
 
 def gn_stats_plain(x):
@@ -297,13 +301,15 @@ class _GroupNormStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight, bias, mean_c, rstd_c = ctx.saved_tensors
-        num_groups, swish = ctx.cfg
-        b, c = mean_c.shape
-        per_group = (b, num_groups, c // num_groups, 1, 1)
-        dx, dw, db = _gn_bwd(_grouped(x, num_groups), weight, bias, g,
-                             mean_c.reshape(per_group),
-                             rstd_c.reshape(per_group), swish, x.dtype)
-        return dx, dw.to(weight.dtype), db.to(bias.dtype), None, None, None
+        with span("ops.plain_backward", g, op="group_norm_stats"):
+            num_groups, swish = ctx.cfg
+            b, c = mean_c.shape
+            per_group = (b, num_groups, c // num_groups, 1, 1)
+            dx, dw, db = _gn_bwd(_grouped(x, num_groups), weight, bias, g,
+                                 mean_c.reshape(per_group),
+                                 rstd_c.reshape(per_group), swish, x.dtype)
+            dw, db = dw.to(weight.dtype), db.to(bias.dtype)
+        return dx, dw, db, None, None, None
 
 
 def _check_groups(x, num_groups):

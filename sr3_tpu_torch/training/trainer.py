@@ -12,7 +12,10 @@ device-resident dataset (``load_device_dataset``,
 ``optimize_parameters_resident``). Parameters are float32; the UNet
 computes in its own dtype (bf16 on CUDA). The optimizer is
 ``training/optim.py``'s Adam (optax's arithmetic) with the first moment in
-``train.optimizer.mu_dtype`` (float32, or "bfloat16"). Every draw of a
+``train.optimizer.mu_dtype`` (float32, or "bfloat16"). A step is a
+``trainer.step`` span (``utils/profiler.py``: recorded only under a
+profiler) holding ``trainer.forward`` (the loss), ``trainer.backward`` and
+``trainer.optimizer`` (Adam and the EMA). Every draw of a
 host-loader step comes from one ``torch.Generator`` on the trainer's
 device, seeded from the config's seed; a resident step draws its batch and
 its loss from a generator seeded from (seed, step), as the JAX package folds
@@ -62,7 +65,7 @@ from sr3_tpu_torch.parallel.mesh import (barrier, data_mean, data_slice,
                                          is_primary)
 from sr3_tpu_torch.training.evaluation import fold_seed
 from sr3_tpu_torch.training.optim import Adam
-from sr3_tpu_torch.utils.profiler import StepTimer
+from sr3_tpu_torch.utils.profiler import StepTimer, span
 from sr3_tpu_torch.utils.runtime import DTYPES, resolve_device
 from sr3_tpu_torch.utils.torch_compat import strip_reference_keys
 
@@ -186,7 +189,8 @@ class Trainer:
         model/model.py:48-58). The loss stays on the device until a log
         line reads it."""
         keys = ("HR", "SR") if self.conditional else ("HR",)
-        self._train_step({k: self.data[k] for k in keys}, self.generator)
+        with span("trainer.step", self.device, step=self.step):
+            self._train_step({k: self.data[k] for k in keys}, self.generator)
         self.timer.tick()
 
     def _train_step(self, batch, generator):
@@ -194,14 +198,18 @@ class Trainer:
         train = self.optimizer is not None
         if train:
             self.optimizer.zero_grad(set_to_none=True)
-        with torch.set_grad_enabled(train):
+        with torch.set_grad_enabled(train), \
+                span("trainer.forward", self.device):
             loss = self.diffusion.p_losses(self.netG, self.sched, batch,
                                            generator)
         if train:
-            loss.backward()
+            with span("trainer.backward", self.device):
+                loss.backward()
             self._reduce_gradients()
-            self.optimizer.step()
-        self._update_ema()
+        with span("trainer.optimizer", self.device):
+            if train:
+                self.optimizer.step()
+            self._update_ema()
         self.step += 1
         self.log_dict["l_pix"] = loss.detach()
 
@@ -310,14 +318,15 @@ class Trainer:
             raise ValueError(f"the resident batch {batch_size} is global; "
                              f"the data axis ({n_data}) must divide it")
         for _ in range(k_steps):
-            g.manual_seed(fold_seed(self.seed, self.step))
-            idx, flip = self._resident_draws(g, batch_size)
-            rows = data_slice(batch_size, self.mesh)
-            batch = self.sample_resident_batch(idx[rows], flip[rows])
-            if n_data > 1:
-                g.manual_seed(fold_seed(fold_seed(self.seed, self.step),
-                                        self.mesh.data.rank))
-            self._train_step(batch, g)
+            with span("trainer.step", self.device, step=self.step):
+                g.manual_seed(fold_seed(self.seed, self.step))
+                idx, flip = self._resident_draws(g, batch_size)
+                rows = data_slice(batch_size, self.mesh)
+                batch = self.sample_resident_batch(idx[rows], flip[rows])
+                if n_data > 1:
+                    g.manual_seed(fold_seed(fold_seed(self.seed, self.step),
+                                            self.mesh.data.rank))
+                self._train_step(batch, g)
         self._resident_batch = batch_size
         self.timer.tick(k_steps)
 

@@ -563,3 +563,55 @@ def test_device_prefetch_pins_off_the_consumer_thread(gen, monkeypatch):
     with pytest.raises(ValueError):
         list(prefetch.device_prefetch(source(4, bad=2), "cuda", size=1))
     assert threading.active_count() == before
+
+
+def test_spans_time_the_stream_and_add_no_device_activity(gen):
+    """A span's device ms is its stream's time between its two events; the
+    events come back to the pool once read, none are recorded while the
+    stream is captured, and the profiler sees the same device activities
+    with the spans as without."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sr3_tpu_torch.utils import profiler
+
+    a = torch.randn(2048, 2048, device="cuda", generator=gen)
+
+    def work(with_spans):
+        for _ in range(4):
+            if with_spans:
+                with profiler.span("chain.step", a, t=0):
+                    a @ a
+            else:
+                a @ a
+        torch.cuda.synchronize()
+
+    def device_events(with_spans):
+        work(with_spans)  # warm
+        profiler.reset_spans()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            work(with_spans)
+        return sorted(e.name() for e in prof.profiler.kineto_results.events()
+                      if e.device_type() != DeviceType.CPU)
+
+    without = device_events(False)
+    assert device_events(True) == without
+    recorded = profiler.spans()
+    assert len(recorded) == 4
+    ms = [s.device_ms for s in recorded]
+    assert all(t > 0 for t in ms), ms
+    pool = profiler._event_pool[torch.cuda.current_device()]
+    n = len(pool)
+    assert n >= 2
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiler.span("chain.step", a) as s:
+            assert len(pool) == n - 2  # the pair is reused
+            a @ a
+        assert s.device_ms > 0 and len(pool) == n
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            with profiler.span("chain.step", a) as captured:
+                a @ a
+    assert captured.device_ms is None
+    profiler.reset_spans()
