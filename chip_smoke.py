@@ -25,7 +25,10 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
      split (each bf16 check labelled with the K5 / K6 classes it launched
      and the merge of a split); the autograd
      Functions of K1, K2 and K4 against autograd of their plain versions,
-     every input gradient; then the GroupNorm launches: device kernels per
+     every input gradient; the GroupNorm(+SiLU) backward kernel
+     (gn_silu_bwd, and gn_silu_act, its mode that recomputes K1's
+     activation) against gn_silu_bwd_plain / gn_silu_act_plain at the
+     training paths' shapes (GN_BWD_CASES); then the GroupNorm launches: device kernels per
      call from torch.profiler (K2: 1; K1: 2, its statistics and its conv),
      two calls on the same input bit-identical, K1's ticket counters back
      at 0, and the C library's plan (cluster size, channel block,
@@ -48,7 +51,9 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
   7. training path: the train-phase Trainer (batch 4, bf16 compute, float32
      parameters, dropout 0.2, Adam 1e-4) through train_loop for TRAIN_STEPS
      steps on seeded synthetic (HR, SR) batches; counters zeroed just
-     before, and K1, K2, K4, K5 and K6 must all have launched; every loss
+     before, and K1, K2, K4, K5, K6 and the GroupNorm backward must all have
+     launched, the backward once a K1, K2 or statistics-route call a step
+     and its activation mode once a K1 call (gn_bwd_sites); every loss
      finite, every parameter with a finite gradient, every parameter moved;
      then get_current_log has l_pix, step_time_ms and imgs_per_sec, all
      finite and positive (the JAX trainer's keys);
@@ -72,9 +77,10 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      "K5/K6 classes": every bf16 class launched since phase 3 was checked;
  12. 64->512 training path: the full-width train-phase Trainer (70.0M
      parameters, batch 2, bf16, dropout 0.2, remat) through train_loop for
-     TRAIN_STEPS_512 steps; counters zeroed just before; K1-K6 launched, K3
-     and K4-K6 exactly as often as the model's sites say (twice per
-     forward with remat); finite losses, every parameter with a finite
+     TRAIN_STEPS_512 steps; counters zeroed just before; K1-K6 and the
+     GroupNorm backward launched, K3 and K4-K6 exactly as often as the
+     model's sites say (twice per forward with remat), the GroupNorm
+     backward as phase 7 says; finite losses, every parameter with a finite
      gradient that moved;
  13. 64->512 training gradients: float32 batch 1, kernels against the plain
      ops (GRAD_TOL), and remat on against remat off (REMAT_TOL);
@@ -98,8 +104,13 @@ The SR3 64->512 training path (configs/sr_sr3_64_512_attn.json, remat on):
      could take (bound_ms: the larger of bytes over 3.35 TB/s and operations
      over 989 TFLOP/s). Beside K1, cuDNN's conv3x3 alone at its shape (not
      the same function, so not library_ms); K2 also at the 16->128 training
-     site 4x64x128^2 with SiLU and the 64->512 serving site 8x512x64^2. The
-     JSON line carries the first shape of each. Then "K4 classes": every
+     site 4x64x128^2 with SiLU and the 64->512 serving site 8x512x64^2; the
+     GroupNorm backward at the benchmark's training maps, 128x192x128^2
+     (K1's, statistics given) and 128x64x128^2 (K2's, its own statistics
+     pass) at 16->128 and 16x64x512^2 (the statistics route) at 64->512,
+     its bound 6 bytes an element (x, dy, dx in bf16), and its activation
+     mode at K1's two maps there (4 bytes an element). The JSON line
+     carries the first shape of each. Then "K4 classes": every
      bf16 K4 class launched since phase 11 was checked.
 The rest of the sampling surface (phases 18 and 19 run right after phase
 6, on its serving trainer; phase 3 also checks K1 and K2 at every site of
@@ -290,11 +301,19 @@ TIME_STEPS = 12
 TOL = {"float32": {"gn_silu_conv3x3": 1e-4, "group_norm": 1e-5,
                    "flash_attention_fwd": 1e-4, "flash_attention_lse": 1e-4,
                    "flash_attention_bwd_dkv": 1e-4,
-                   "flash_attention_bwd_dq": 1e-4, "function": 1e-4},
+                   "flash_attention_bwd_dq": 1e-4, "function": 1e-4,
+                   "gn_silu_bwd": 1e-4, "gn_silu_act": 1e-5},
        "bfloat16": {"gn_silu_conv3x3": 2e-2, "group_norm": 2e-2,
                     "flash_attention_fwd": 2e-2, "flash_attention_lse": 1e-4,
                     "flash_attention_bwd_dkv": 2e-2,
-                    "flash_attention_bwd_dq": 2e-2, "function": 2e-2}}
+                    "flash_attention_bwd_dq": 2e-2, "function": 2e-2,
+                    "gn_silu_bwd": 8e-3, "gn_silu_act": 8e-3}}
+# The GroupNorm(+SiLU) backward's dx and its activation mode's act in bf16:
+# both sides compute in float32 from the same bf16 inputs and round once,
+# so they differ by at most one bf16 step (2^-7 of an element, at most
+# 7.8e-3 of max|plain|); its float32 dgamma, dbeta and pre-affine gradients
+# (sums in another order) within GN_BWD_PARAM_TOL of their max|plain|
+GN_BWD_PARAM_TOL = 1e-4
 # float32 loss and gradients of the full-width UNet, kernels vs plain ops
 GRAD_TOL = 1e-3
 FORWARD_TOL = 1e-3
@@ -323,6 +342,18 @@ K2_SERVING = [(512, 16), (512, 8)]         # (C, H=W), swish off, timed
 # cluster's shared memory (128 channels a group at 128^2), which the
 # kernel normalizes from a second read of x
 K2_EXTRA = [(2, 96, 10, 10, 32, True), (1, 256, 128, 128, 2, True)]
+# (B, C, H=W, G, swish, pre-affine, statistics given) of the GroupNorm
+# backward: the 16->128 training cell's K1 input at 128^2 (192 channels),
+# its 8^2 maps, the 64->512 cell's statistics route at 512^2, a 1024^2 map
+# (a slice split over all SMs), the attention pre-norm (no SiLU), K1's
+# pre-affine, and a ragged map
+GN_BWD_CASES = [(128, 192, 128, 32, True, False, False),
+                (128, 512, 8, 32, True, False, True),
+                (16, 64, 512, 16, True, False, True),
+                (2, 64, 1024, 32, True, False, False),
+                (4, 512, 16, 32, False, False, False),
+                (2, 64, 32, 32, True, True, True),
+                (3, 96, 10, 8, True, True, False)]
 K4_SHAPES = [(256, 512), (64, 512)]        # (seq, head_dim)
 # (batch*heads, seq, head_dim) of K4-with-lse, K5 and K6 in the train step
 # at batch 4, a ragged shape, and a ragged one whose keys K4 splits (as it
@@ -457,6 +488,9 @@ GN_CLUSTER = ("one launch: a thread-block cluster per (image, channel "
               "block), 16-byte loads, the range resident in shared memory, "
               "sums folded through distributed shared memory in rank order, "
               "float32 arithmetic")
+GN_BWD = ("two passes over the map (the per-(b, group) sums, then dx), "
+          "slices split over pixels to fill the card once, 16-byte loads, "
+          "float32 arithmetic, fixed-order folds without atomics")
 KERNELS = {
     "gn_silu_conv3x3": ("sr3_tpu_torch/csrc/conv_fused.cu",
                         "sr3_tpu/ops/conv_fused.py:117",
@@ -476,6 +510,14 @@ KERNELS = {
     "gn_stats": ("sr3_tpu_torch/csrc/gn_stats.cu",
                  "sr3_tpu/ops/groupnorm.py:66",
                  {"float32": FMA, "bfloat16": FMA}),
+    # the GroupNorm(+SiLU) backward of K1, K2 and the statistics route, and
+    # its mode that recomputes K1's activation; the JAX package leaves both
+    # to XLA (_fused_fwd_bwd, _gn_swish_fwd_bwd), so they replace no Pallas
+    # kernel
+    "gn_silu_bwd": ("sr3_tpu_torch/csrc/gn_bwd.cu", "none (XLA)",
+                    {"float32": GN_BWD, "bfloat16": GN_BWD}),
+    "gn_silu_act": ("sr3_tpu_torch/csrc/gn_bwd.cu", "none (XLA)",
+                    {"float32": GN_BWD, "bfloat16": GN_BWD}),
     # K1's halo entry (an H-shard under the space axis): the conv launch of
     # both routes with outside statistics and the neighbours' halo rows
     "gn_silu_conv3x3_halo": ("sr3_tpu_torch/csrc/conv_fused.cu",
@@ -487,7 +529,8 @@ ONE_DEVICE_KERNELS = tuple(k for k in KERNELS
                            if k != "gn_silu_conv3x3_halo")
 FORWARD_KERNELS = ("gn_silu_conv3x3", "group_norm", "flash_attention_fwd")
 KERNELS_16_128 = FORWARD_KERNELS + ("flash_attention_bwd_dkv",
-                                    "flash_attention_bwd_dq")
+                                    "flash_attention_bwd_dq", "gn_silu_bwd",
+                                    "gn_silu_act")
 
 
 def phase(name):
@@ -745,6 +788,10 @@ def kernel_phase(torch, errs):
             record("flash_attention_bwd_dkv", dn, label + ": dk", dk, rk)
             record("flash_attention_bwd_dkv", dn, label + ": dv", dv, rv)
             record("flash_attention_bwd_dq", dn, label + ": dq", dq, rq)
+        for case in GN_BWD_CASES:
+            _gn_bwd_checks(torch, g, dtype, dn, case, record,
+                           lambda *a: check(torch, errs, failures, *a,
+                                            tol=GN_BWD_PARAM_TOL))
         for name, call, wrapper, plain, inputs in _function_cases(
                 torch, g, dtype):
             attention.bf16_tile_launches(reset=True)
@@ -762,6 +809,84 @@ def kernel_phase(torch, errs):
     attention.bf16_tile_launches(reset=True)
     attention.bwd_tile_launches(reset=True)
     return checked_tiles, checked_clusters, checked_k4, checked_bwd
+
+
+def _gn_bwd_inputs(torch, g, dtype, b, c, hw, pre):
+    """x, dy (``dtype``, channels_last), gamma, beta and the pre-affine
+    (``pre``) of one GroupNorm backward case."""
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    cl = torch.channels_last
+    x = (3 * r(b, c, hw, hw) + 1).to(dtype).contiguous(memory_format=cl)
+    dy = r(b, c, hw, hw).to(dtype).contiguous(memory_format=cl)
+    affine = dict(pre_scale=1 + 0.3 * r(b, c), pre_bias=0.5 * r(b, c)) \
+        if pre else {}
+    return x, dy, 1 + 0.2 * r(c), 0.1 * r(c), affine
+
+
+def _gn_bwd_checks(torch, g, dtype, dn, case, record, record_param):
+    """One GN_BWD_CASES case: where the statistics are given, gn_silu_act's
+    activation and statistics against gn_silu_act_plain's; then
+    gn_silu_bwd's dx (``record``) and its float32 parameter gradients
+    (``record_param``) against gn_silu_bwd_plain's."""
+    from sr3_tpu_torch.ops import groupnorm
+
+    b, c, hw, groups, swish, pre, given = case
+    x, dy, gw, gb, affine = _gn_bwd_inputs(torch, g, dtype, b, c, hw, pre)
+    label = (f"{b}x{c}x{hw}x{hw} G={groups}" + (" +silu" if swish else "")
+             + (" +pre-affine" if pre else ""))
+    stats = None
+    if given:
+        act, stats = groupnorm.gn_silu_act(x, gw, gb, groups, **affine)
+        ref_act, ref_stats = groupnorm.gn_silu_act_plain(x, gw, gb, groups,
+                                                         **affine)
+        record("gn_silu_act", dn, label, act, ref_act)
+        for name, got, ref in zip(("mean", "rstd"), stats, ref_stats):
+            record_param("gn_silu_act", dn, f"{label}: {name}", got, ref)
+        del act, ref_act
+    got = groupnorm.gn_silu_bwd(x, dy, gw, gb, groups, swish=swish,
+                                stats=stats, **affine)
+    want = groupnorm.gn_silu_bwd_plain(x, dy, gw, gb, groups, swish=swish,
+                                       stats=stats, **affine)
+    label += " statistics " + ("given" if given else "its own")
+    record("gn_silu_bwd", dn, label + ": dx", got[0], want[0])
+    for name, a, w in zip(("dgamma", "dbeta", "dpre_scale", "dpre_bias"),
+                          got[1:], want[1:]):
+        if (a is None) != (w is None):
+            raise AssertionError(f"gn_silu_bwd {label}: {name} {a} vs {w}")
+        if a is not None:
+            record_param("gn_silu_bwd", dn, f"{label}: {name}", a, w)
+
+
+def gn_bwd_sites(torch, config):
+    """(K1 calls, GroupNorm backward calls) of one training forward of
+    ``config``'s model, read off a meta-device copy: K1 runs both Blocks of
+    every ResnetBlock but its dropout Block (K2 or the statistics route
+    and a plain conv in training), and final_conv; the backward kernel
+    runs once for each of those, each dropout Block and each attention
+    pre-norm. Remat replays forwards, not backwards: the counts hold a
+    step with it too."""
+    from sr3_tpu_torch.models.networks import define_G
+
+    net = define_G(_load_opt(config=config), device="meta").denoise_fn
+    blocks = [layer for layer in (*net.downs[1:], *net.mid, *net.ups)
+              if hasattr(layer, "res_block")]
+    dropout = sum(bool(layer.res_block.block2.dropout) for layer in blocks)
+    attn = sum(layer.attn is not None for layer in blocks)
+    k1 = 2 * len(blocks) - dropout + 1
+    return k1, k1 + dropout + attn
+
+
+def _gn_bwd_launches_checked(torch, launches, config, steps):
+    """Fail unless ``steps`` train steps of ``config``'s model called the
+    GroupNorm backward and its activation mode as gn_bwd_sites says."""
+    k1, norms = gn_bwd_sites(torch, config)
+    expect = {"gn_silu_bwd": norms * steps, "gn_silu_act": k1 * steps}
+    wrong = {k: (launches[k], v) for k, v in expect.items()
+             if launches[k] != v}
+    print(f"  expected GroupNorm backward calls {expect}", flush=True)
+    if wrong:
+        raise AssertionError(f"GroupNorm backward calls (got, expected): "
+                             f"{wrong}")
 
 
 @phase("K1 tiles")
@@ -952,7 +1077,8 @@ def counters():
 
     return [conv_fused.counter, groupnorm.counter, groupnorm.stats_counter,
             attention.counter, attention.dkv_counter, attention.dq_counter,
-            conv_fused.halo_counter]
+            conv_fused.halo_counter, groupnorm.bwd_counter,
+            groupnorm.act_counter]
 
 
 def launches_of(names):
@@ -1141,6 +1267,7 @@ def training_phase(torch):
                              "dropout 0.2")
     loader = _synthetic_batches(np, TRAIN_STEPS, b, seed=4)
     launches = _train_loop_checked(torch, trainer, opt, loader, KERNELS_16_128)
+    _gn_bwd_launches_checked(torch, launches, CONFIG, TRAIN_STEPS)
     _log_checked(trainer, "training path")
     return trainer, launches
 
@@ -1610,6 +1737,7 @@ def training_512_phase(torch):
     launches = _train_loop_checked(torch, trainer, opt, loader,
                                    ONE_DEVICE_KERNELS)
     _remat_launches_checked(launches, sites, n_attn, TRAIN_STEPS_512)
+    _gn_bwd_launches_checked(torch, launches, CONFIG_512, TRAIN_STEPS_512)
     return trainer, launches
 
 
@@ -2164,6 +2292,30 @@ def kernel_timing_512_phase(torch):
               lambda: torch.var_mean(xf, dim=(2, 3), correction=0),
               3 * x.numel(), 2 * x.numel() + 2 * 4 * b * c)
         del x, xf
+    # the GroupNorm backward at the benchmark's training maps: K1's at
+    # 16->128 (statistics from its activation mode), K2's (its own
+    # statistics pass) and the 64->512 statistics route; least bytes x, dy
+    # and dx, and x and act for the activation mode
+    for bb, c, hw, groups, given in ((128, 192, 128, 32, True),
+                                     (128, 64, 128, 32, False),
+                                     (16, 64, 512, 16, True)):
+        x, dy, gw, gb, _ = _gn_bwd_inputs(torch, g, dt, bb, c, hw, False)
+        shape = f"{bb}x{c}x{hw}x{hw} G={groups} +silu"
+        stats = None
+        if given:
+            _, stats = groupnorm.gn_silu_act(x, gw, gb, groups)
+            entry("gn_silu_act", shape,
+                  lambda: groupnorm.gn_silu_act(x, gw, gb, groups),
+                  lambda: groupnorm.gn_silu_act_plain(x, gw, gb, groups),
+                  None, 14 * x.numel(), 2 * 2 * x.numel())
+        entry("gn_silu_bwd", shape + " statistics "
+              + ("given" if given else "its own"),
+              lambda: groupnorm.gn_silu_bwd(x, dy, gw, gb, groups,
+                                            stats=stats),
+              lambda: groupnorm.gn_silu_bwd_plain(x, dy, gw, gb, groups,
+                                                  stats=stats),
+              None, 30 * x.numel(), 3 * 2 * x.numel())
+        del x, dy, stats
     for bh, seq, d in LONG_SHAPES:
         _attention_entries(torch, g, entry, bh, seq, d)
     return out
@@ -2737,6 +2889,7 @@ def training_1024_phase(torch):
                                    ONE_DEVICE_KERNELS)
     print(f"  peak device memory {_peak_gib(torch):.2f} GiB", flush=True)
     _remat_launches_checked(launches, sites, n_attn, TRAIN_STEPS_1024)
+    _gn_bwd_launches_checked(torch, launches, CONFIG_1024, TRAIN_STEPS_1024)
     trainer.feed_data(_synthetic_batches(np, 1, b, seed=33, lr_size=128)[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3560,6 +3713,8 @@ def noattn_512_phase(torch):
                                 ONE_DEVICE_KERNELS)
     print(f"  K2 launches in training {train['group_norm']}", flush=True)
     _remat_launches_checked(train, sites, n_attn, TRAIN_STEPS_512)
+    _gn_bwd_launches_checked(torch, train, CONFIG_512_NOATTN,
+                             TRAIN_STEPS_512)
     del trainer, net
     torch.cuda.empty_cache()
 

@@ -57,6 +57,15 @@ _SIGNATURES = {
     "sr3_gn_silu_conv3x3_halo": ([_P] * 9 + [_I] * 6 + [_P], _I),
     # counts (4 long long), reset
     "sr3_gn_silu_conv3x3_tiles": ([_P, _I], _I),
+    # B, HW, C, G, dtype, pre
+    "sr3_gn_bwd_workspace_floats": ([_I] * 6, _L),
+    # x, dy, pre_scale, pre_bias, gamma, beta, mean, rstd, dx, dgamma, dbeta,
+    # dpre_scale, dpre_bias, workspace, B, HW, C, G, eps, swish, dtype,
+    # stream
+    "sr3_gn_bwd": ([_P] * 14 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # x, pre_scale, pre_bias, gamma, beta, act, mean, rstd, workspace, B, HW,
+    # C, G, eps, dtype, stream
+    "sr3_gn_bwd_act": ([_P] * 9 + [_I] * 4 + [_F, _I, _P], _I),
     # q, k, v, o, lse, workspace, BH, S, D, scale, dtype, stream
     "sr3_flash_attention_fwd": ([_P] * 6 + [_I] * 3 + [_F, _I, _P], _I),
     # BH, S, D, dtype

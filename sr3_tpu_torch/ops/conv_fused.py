@@ -6,10 +6,17 @@ residual add of the dispatcher): optional per-(batch, channel) pre-affine
 ``a*x + b`` in x's dtype, one-pass float32 GroupNorm, SiLU, cast to x's
 dtype, conv3x3 with padding 1 and bias, then the residual.
 ``gn_silu_conv3x3`` runs it for a CPU tensor and launches the Hopper kernel
-for a CUDA tensor. It is differentiable: as ``_fused_fwd_bwd`` does, the
-backward recomputes the plain version under autograd (the residual's
-gradient is the output gradient), in an ``ops.plain_backward`` span
-(``utils/profiler.py``). Activations are logical NCHW in
+for a CUDA tensor. It is differentiable. Its backward, in an
+``ops.kernel_backward`` span (``utils/profiler.py``), takes three steps:
+``groupnorm.gn_silu_act`` recomputes the activation SiLU(GroupNorm(a*x +
+b)) and its statistics from the saved x (the backward kernel's own
+launches, not K1's); ``convolution_backward`` gives the activation's, the
+weight's and the bias's gradients, as autograd of the conv would (the JAX
+package leaves the conv's vjp to XLA, ``_fused_fwd_bwd``); and
+``groupnorm.gn_silu_bwd`` turns the activation's gradient into those of x,
+the GroupNorm affine and the pre-affine. The residual's gradient is the
+output gradient. On the CPU each step is its plain version. Activations
+are logical NCHW in
 ``torch.channels_last`` memory; the conv weight is torch's (Cout, Cin, 3,
 3), also channels_last (physically (Cout, 3, 3, Cin), the layout the kernel
 reads).
@@ -20,7 +27,8 @@ statistics (K3 on the shard, all-reduced) and the neighbours' halo rows and
 runs K1's halo entry (``gn_silu_conv3x3_halo``: the conv launch alone, with
 the caller's per-(b, c) mult / add and the raw rows above and below the
 shard); ``gn_silu_conv3x3_halo_plain`` is its plain version, and its
-backward is autograd through that plain version, as K1's is.
+backward is autograd through that plain version (an ``ops.plain_backward``
+span).
 """
 
 
@@ -32,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from sr3_tpu_torch.ops import _build
-from sr3_tpu_torch.ops.groupnorm import (check_channels_last,
+from sr3_tpu_torch.ops.groupnorm import (check_channels_last, f32_or_none,
+                                         gn_silu_act, gn_silu_bwd,
                                          group_norm_plain, space_stats,
                                          stats_workspace)
 from sr3_tpu_torch.utils.profiler import Counter, span
@@ -70,14 +79,6 @@ def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias, num_groups,
     if residual is not None:
         y = y + residual.to(y.dtype)
     return y.contiguous(memory_format=torch.channels_last)
-
-
-def _f32_or_none(t, shape, name):
-    if t is None:
-        return None
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    return t.float().contiguous()
 
 
 def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
@@ -127,8 +128,8 @@ def _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual,
                          f"got {cin}")
     lib = _build.load_library()
     ws, tickets = stats_workspace(lib, x, num_groups)
-    ps = _f32_or_none(pre_scale, (b, cin), "pre_scale")
-    pb = _f32_or_none(pre_bias, (b, cin), "pre_bias")
+    ps = f32_or_none(pre_scale, (b, cin), "pre_scale")
+    pb = f32_or_none(pre_bias, (b, cin), "pre_bias")
     cb = None if bias is None else bias.float().contiguous()
     gamma = gn_weight.float().contiguous()
     beta = gn_bias.float().contiguous()
@@ -147,8 +148,10 @@ def _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual,
 
 
 class _GnSiluConv3x3(torch.autograd.Function):
-    """Counterpart of ``_fused_fwd_bwd``: kernel forward; the backward is
-    autograd through the plain version, recomputed from the saved inputs."""
+    """Counterpart of ``_fused_fwd_bwd``: kernel forward; the backward
+    recomputes the activation, takes the conv's gradients and then the
+    GroupNorm+SiLU's (``gn_silu_act``, ``convolution_backward``,
+    ``gn_silu_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias,
@@ -164,21 +167,33 @@ class _GnSiluConv3x3(torch.autograd.Function):
     def backward(ctx, g):
         # unpacked outside the span: it may replay a remat block's forward
         saved = ctx.saved_tensors
-        with span("ops.plain_backward", g, op="gn_silu_conv3x3"):
-            need = ctx.needs_input_grad[:7]
-            with torch.enable_grad():
-                leaves = [None if t is None else t.detach().requires_grad_(n)
-                          for t, n in zip(saved, need)]
-                x, gw, gb, w, cb, ps, pb = leaves
-                y = gn_silu_conv3x3_plain(x, gw, gb, w, cb, *ctx.cfg,
-                                          pre_scale=ps, pre_bias=pb)
-                wrt = [t for t in leaves if t is not None and t.requires_grad]
-                grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
-            out = [next(grads) if t is not None and t.requires_grad else None
-                   for t in leaves]
-            dres = (g.to(ctx.residual_dtype) if ctx.needs_input_grad[7]
-                    else None)
-        return (*out, dres, None, None)
+        x, gw, gb, w, cb, ps, pb = saved
+        need = ctx.needs_input_grad
+        grads = [None] * 7
+        with span("ops.kernel_backward", g, op="gn_silu_conv3x3"):
+            need_act = any(need[i] for i in (0, 1, 2, 5, 6))
+            need_cb = cb is not None and need[4]
+            if need_act or need[3] or need_cb:
+                num_groups, eps = ctx.cfg
+                act, stats = gn_silu_act(x, gw, gb, num_groups, eps,
+                                         pre_scale=ps, pre_bias=pb)
+                gy = g.to(x.dtype).contiguous(
+                    memory_format=torch.channels_last)
+                dact, grads[3], grads[4] = \
+                    torch.ops.aten.convolution_backward(
+                        gy, act, w.to(x.dtype),
+                        None if cb is None else [cb.shape[0]], [1, 1],
+                        [1, 1], [1, 1], False, [0, 0], 1,
+                        [need_act, need[3], need_cb])
+                if need_act:
+                    dx, dgw, dgb, dps, dpb = gn_silu_bwd(
+                        x, dact, gw, gb, num_groups, eps, stats=stats,
+                        pre_scale=ps, pre_bias=pb)
+                    grads[:3], grads[5:] = (dx, dgw, dgb), (dps, dpb)
+            dres = g.to(ctx.residual_dtype) if need[7] else None
+        grads = [t.to(s.dtype) if n and t is not None else None
+                 for t, s, n in zip(grads, saved, need)]
+        return (*grads, dres, None, None)
 
 
 # ---------------------------------------------------- the halo entry (space)
@@ -237,8 +252,8 @@ def _fwd_halo(x, top, bottom, mult, add, weight, bias, residual):
     if x.dtype == torch.bfloat16 and cin % 16:
         raise ValueError(f"the bfloat16 kernel takes C_in a multiple of 16, "
                          f"got {cin}")
-    m = _f32_or_none(mult, (b, cin), "mult")
-    a = _f32_or_none(add, (b, cin), "add")
+    m = f32_or_none(mult, (b, cin), "mult")
+    a = f32_or_none(add, (b, cin), "add")
     if any(t is not None and t.data_ptr() % 16
            for t in (x, wk, top, bottom, m, a)):
         raise ValueError("x, the halo rows, mult, add and the conv weight "

@@ -6,17 +6,22 @@ plain PyTorch version of the XLA spec ``group_norm_swish_xla`` (float32
 one-pass sum / sum-of-squares statistics, variance clamped at 0, eps 1e-5);
 ``group_norm`` runs it for a CPU tensor and launches the Hopper kernel for a
 CUDA tensor. ``group_norm`` is differentiable: its backward is the JAX
-package's hand formula (``_gn_swish_fwd_bwd``), ``group_norm_bwd_plain``, in
-plain PyTorch on either device, as it is XLA and not a Pallas kernel there
-(an ``ops.plain_backward`` span, ``utils/profiler.py``).
+package's hand formula (``_gn_swish_fwd_bwd``), ``gn_silu_bwd``: the plain
+version ``gn_silu_bwd_plain`` on the CPU, the backward kernel
+(``csrc/gn_bwd.cu``, which replaces no Pallas kernel: the JAX package leaves
+this backward to XLA) on CUDA, in an ``ops.kernel_backward`` span
+(``utils/profiler.py``). ``gn_silu_bwd`` also takes K1's pre-affine and
+gives its gradients, and ``gn_silu_act`` recomputes K1's activation with
+the statistics ``gn_silu_bwd`` takes, for K1's backward
+(``ops/conv_fused.py``).
 
 On maps of H*W >= 256^2 (``STATS_MIN_HW``) ``group_norm`` takes the
 statistics route instead, the counterpart of ``_gn_swish_stats_fwd_bwd``:
 ``gn_stats`` gives the per-(batch, channel) float32 sums (``gn_stats_plain``
 for a CPU tensor, kernel K3 for a CUDA tensor), ``_group_fold`` turns them
 into per-channel mean and rstd, and the normalize (+SiLU) is plain PyTorch,
-as it is XLA there. Its backward is the same hand formula on the statistics
-the forward stashed, with no second pass over x for them. The JAX package
+as it is XLA there. Its backward is ``gn_silu_bwd`` on the statistics the
+forward stashed, with no second pass over x for them. The JAX package
 takes that route only on a TPU and behind an environment variable; in the
 port the kernels are the default on CUDA, and the CPU takes the same route
 with the plain sums. Tensors are logical NCHW in ``torch.channels_last``
@@ -42,6 +47,8 @@ from sr3_tpu_torch.utils.profiler import Counter, span
 
 counter = Counter("group_norm")
 stats_counter = Counter("gn_stats")
+bwd_counter = Counter("gn_silu_bwd")
+act_counter = Counter("gn_silu_act")
 # maps of at least this many pixels take the statistics route (K3)
 STATS_MIN_HW = 256 * 256
 # channels K1's and K2's GroupNorm kernels take (kGnMaxChannels, common.cuh)
@@ -131,23 +138,28 @@ def _group_stats(xf, eps):
     return mean, torch.rsqrt(var + eps)
 
 
+def _normalize(xf, weight, bias, mean, rstd, swish):
+    """SiLU?(GroupNorm) of grouped float32 xf given its group statistics
+    (broadcast against xf): float32 (B, C, H, W)."""
+    b, num_groups, cg, h, w = xf.shape
+    xn = ((xf - mean) * rstd).reshape(b, num_groups * cg, h, w)
+    xn = xn * weight.float()[None, :, None, None] \
+        + bias.float()[None, :, None, None]
+    return xn * torch.sigmoid(xn) if swish else xn
+
+
 def group_norm_plain(x, weight, bias, num_groups, eps=1e-5, swish=True):
     """x: (B,C,H,W). weight/bias: (C,). Same shape, dtype and layout as x."""
     xf = _grouped(x, num_groups)
     mean, rstd = _group_stats(xf, eps)
-    xn = ((xf - mean) * rstd).reshape(x.shape)
-    xn = xn * weight.float()[None, :, None, None] \
-        + bias.float()[None, :, None, None]
-    if swish:
-        xn = xn * torch.sigmoid(xn)
-    return xn.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    return _normalize(xf, weight, bias, mean, rstd, swish).to(x.dtype) \
+        .contiguous(memory_format=torch.channels_last)
 
 
-def _gn_bwd(xf, weight, bias, g, mean, rstd, swish, dtype):
+def _gn_bwd(xf, weight, bias, g, mean, rstd, swish):
     """The hand backward of GroupNorm(+SiLU) of grouped float32 xf given its
-    statistics (mean and rstd broadcast against xf). Returns (dx, dweight,
-    dbias): dx (B,C,H,W) of ``dtype`` in channels_last memory, the others
-    float32 (C,)."""
+    statistics (mean and rstd broadcast against xf). Returns float32 (dx
+    (B,C,H,W), dweight (C,), dbias (C,))."""
     b, num_groups, cg, h, w = xf.shape
     c = num_groups * cg
     xhat = (xf - mean) * rstd
@@ -163,21 +175,163 @@ def _gn_bwd(xf, weight, bias, g, mean, rstd, swish, dtype):
     dzg = dz * sc
     m1 = dzg.mean(dim=(2, 3, 4), keepdim=True)
     m2 = (dzg * xhat).mean(dim=(2, 3, 4), keepdim=True)
-    dx = (rstd * (dzg - m1 - xhat * m2)).reshape(b, c, h, w)
-    return (dx.to(dtype).contiguous(memory_format=torch.channels_last),
-            dweight, dbias)
+    return (rstd * (dzg - m1 - xhat * m2)).reshape(b, c, h, w), dweight, dbias
 
 
-def group_norm_bwd_plain(x, weight, bias, g, num_groups, eps=1e-5,
-                         swish=True):
-    """(dx, dweight, dbias) of ``group_norm_plain`` for the output gradient
-    g (the hand formula of ``_gn_swish_fwd_bwd``): the statistics recomputed
-    in one pass, the variance clamped at 0, the SiLU derivative when
-    ``swish``. dx has x's dtype and layout; dweight and dbias are float32
-    (C,)."""
-    xf = _grouped(x, num_groups)
-    mean, rstd = _group_stats(xf, eps)
-    return _gn_bwd(xf, weight, bias, g, mean, rstd, swish, x.dtype)
+def _pre_affine(xf, pre_scale, pre_bias):
+    """a*x + b of float32 xf (B,C,H,W) for (B, C) pre_scale / pre_bias, each
+    None for 1 / 0, in float32."""
+    if pre_scale is not None:
+        xf = xf * pre_scale.float()[:, :, None, None]
+    if pre_bias is not None:
+        xf = xf + pre_bias.float()[:, :, None, None]
+    return xf
+
+
+def _per_channel(t, c):
+    """Group statistics (B, G, 1, 1, 1) -> per-channel (B, C)."""
+    b, num_groups = t.shape[:2]
+    return t.reshape(b, num_groups).repeat_interleave(c // num_groups, dim=1)
+
+
+def gn_silu_bwd_plain(x, dy, weight, bias, num_groups, eps=1e-5, swish=True,
+                      stats=None, pre_scale=None, pre_bias=None):
+    """Gradients of y = SiLU?(GroupNorm(v)), v = a*x + b, for the output
+    gradient dy: the hand formula of ``_gn_swish_fwd_bwd`` (the SiLU
+    derivative when ``swish``), extended by the pre-affine. v is taken in
+    float32 (a, b: (B, C) ``pre_scale`` / ``pre_bias``, 1 / 0 where None);
+    ``stats``: per-(b, c) (mean, rstd) of v's groups, (B, C) float32 each,
+    or None to take them in one pass (the variance clamped at 0). Returns
+    (dx, dweight, dbias, dpre_scale, dpre_bias): dx of x's dtype and layout,
+    dweight and dbias float32 (C,), dpre_* float32 (B, C) or None where
+    pre_* is None."""
+    b, c = x.shape[:2]
+    xf = x.float()
+    vg = _grouped(_pre_affine(xf, pre_scale, pre_bias), num_groups)
+    if stats is None:
+        mean, rstd = _group_stats(vg, eps)
+    else:
+        per_group = (b, num_groups, c // num_groups, 1, 1)
+        mean, rstd = (t.float().reshape(per_group) for t in stats)
+    dv, dweight, dbias = _gn_bwd(vg, weight, bias, dy, mean, rstd, swish)
+    dpre_scale = None if pre_scale is None else (dv * xf).sum(dim=(2, 3))
+    dpre_bias = None if pre_bias is None else dv.sum(dim=(2, 3))
+    dx = _pre_affine(dv, pre_scale, None)
+    return (dx.to(x.dtype).contiguous(memory_format=torch.channels_last),
+            dweight, dbias, dpre_scale, dpre_bias)
+
+
+def gn_silu_act_plain(x, weight, bias, num_groups, eps=1e-5, pre_scale=None,
+                      pre_bias=None):
+    """(act, (mean, rstd)): K1's activation SiLU(GroupNorm(a*x + b)) with v =
+    a*x + b in float32, in x's dtype and layout, and the per-(b, c)
+    statistics of v's groups, (B, C) float32 each."""
+    c = x.shape[1]
+    vg = _grouped(_pre_affine(x.float(), pre_scale, pre_bias), num_groups)
+    mean, rstd = _group_stats(vg, eps)
+    act = _normalize(vg, weight, bias, mean, rstd, True).to(x.dtype)
+    return (act.contiguous(memory_format=torch.channels_last),
+            (_per_channel(mean, c), _per_channel(rstd, c)))
+
+
+def f32_or_none(t, shape, name):
+    """A per-sample tensor of ``shape`` as contiguous float32, or None."""
+    if t is None:
+        return None
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    return t.float().contiguous()
+
+
+def _aligned(t):
+    """t in channels_last memory, copied where its data does not start
+    16-byte aligned."""
+    t = t.contiguous(memory_format=torch.channels_last)
+    return t if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.channels_last)
+
+
+def _bwd_operands(x, weight, bias, num_groups, pre_scale, pre_bias):
+    """What both CUDA entries of the backward kernel take: the library, x
+    16-byte aligned, the float32 workspace, the pre-affine (B, C) and the
+    affine (C,) as contiguous float32 (None where absent)."""
+    b, c, h, w = x.shape
+    lib = _build.load_library()
+    x = _aligned(x)
+    pre = pre_scale is not None or pre_bias is not None
+    n = lib.sr3_gn_bwd_workspace_floats(b, h * w, c, num_groups,
+                                        _build.dtype_code(x), int(pre))
+    if n < 0:
+        raise ValueError(f"the GroupNorm backward kernel takes C a multiple "
+                         f"of {16 // x.element_size()} for {x.dtype}, at "
+                         f"most {KERNEL_MAX_CHANNELS}, in whole groups; got "
+                         f"C={c} in {num_groups} groups")
+    ws = torch.empty(n, dtype=torch.float32, device=x.device)
+    return (lib, x, ws, f32_or_none(pre_scale, (b, c), "pre_scale"),
+            f32_or_none(pre_bias, (b, c), "pre_bias"),
+            weight.float().contiguous(), bias.float().contiguous())
+
+
+def gn_silu_bwd(x, dy, weight, bias, num_groups, eps=1e-5, swish=True,
+                stats=None, pre_scale=None, pre_bias=None):
+    """``gn_silu_bwd_plain``'s gradients: the plain version on the CPU, the
+    backward kernel (``csrc/gn_bwd.cu``) on CUDA, which takes ``stats`` in a
+    pass of its own where they are None."""
+    check_channels_last(x)
+    if x.device.type == "cpu":
+        return gn_silu_bwd_plain(x, dy, weight, bias, num_groups, eps, swish,
+                                 stats, pre_scale, pre_bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_bwd runs on cpu or cuda, not {x.device}")
+    b, c, h, w = x.shape
+    lib, x, ws, ps, pb, gamma, beta = _bwd_operands(
+        x, weight, bias, num_groups, pre_scale, pre_bias)
+    dy = _aligned(dy.to(x.dtype))
+    mean, rstd = (None, None) if stats is None else (
+        f32_or_none(t, (b, c), "stats") for t in stats)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=x.device)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    dweight, dbias = f32(c), f32(c)
+    dps = None if ps is None else f32(b, c)
+    dpb = None if pb is None else f32(b, c)
+    ptr = _build.ptr
+    err = lib.sr3_gn_bwd(
+        x.data_ptr(), dy.data_ptr(), ptr(ps), ptr(pb), gamma.data_ptr(),
+        beta.data_ptr(), ptr(mean), ptr(rstd), dx.data_ptr(),
+        dweight.data_ptr(), dbias.data_ptr(), ptr(dps), ptr(dpb),
+        ws.data_ptr(), b, h * w, c, num_groups, float(eps), int(swish),
+        _build.dtype_code(x), _build.stream_of(x))
+    _build.check(err, "sr3_gn_bwd")
+    bwd_counter.n += 1
+    return dx, dweight, dbias, dps, dpb
+
+
+def gn_silu_act(x, weight, bias, num_groups, eps=1e-5, pre_scale=None,
+                pre_bias=None):
+    """``gn_silu_act_plain``: the plain version on the CPU, the backward
+    kernel's statistics and activation launches on CUDA."""
+    check_channels_last(x)
+    if x.device.type == "cpu":
+        return gn_silu_act_plain(x, weight, bias, num_groups, eps, pre_scale,
+                                 pre_bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_act runs on cpu or cuda, not {x.device}")
+    b, c, h, w = x.shape
+    lib, x, ws, ps, pb, gamma, beta = _bwd_operands(
+        x, weight, bias, num_groups, pre_scale, pre_bias)
+    act = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    ptr = _build.ptr
+    err = lib.sr3_gn_bwd_act(
+        x.data_ptr(), ptr(ps), ptr(pb), gamma.data_ptr(), beta.data_ptr(),
+        act.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        ws.data_ptr(), b, h * w, c, num_groups, float(eps),
+        _build.dtype_code(x), _build.stream_of(x))
+    _build.check(err, "sr3_gn_bwd_act")
+    act_counter.n += 1
+    return act, (stats[0], stats[1])
 
 
 def _group_norm_fwd(x, weight, bias, num_groups, eps, swish):
@@ -204,7 +358,8 @@ def _group_norm_fwd(x, weight, bias, num_groups, eps, swish):
 
 
 class _GroupNorm(torch.autograd.Function):
-    """Counterpart of ``_gn_swish_fwd_bwd``: kernel forward, hand backward."""
+    """Counterpart of ``_gn_swish_fwd_bwd``: kernel forward, hand backward
+    (``gn_silu_bwd``, its own statistics pass)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, num_groups, eps, swish):
@@ -215,8 +370,8 @@ class _GroupNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight, bias = ctx.saved_tensors
-        with span("ops.plain_backward", g, op="group_norm"):
-            dx, dw, db = group_norm_bwd_plain(x, weight, bias, g, *ctx.cfg)
+        with span("ops.kernel_backward", g, op="group_norm"):
+            dx, dw, db, _, _ = gn_silu_bwd(x, g, weight, bias, *ctx.cfg)
             dw, db = dw.to(weight.dtype), db.to(bias.dtype)
         return dx, dw, db, None, None, None
 
@@ -287,7 +442,7 @@ def _stats_fwd(x, weight, bias, num_groups, eps, swish):
 
 class _GroupNormStats(torch.autograd.Function):
     """Counterpart of ``_gn_swish_stats_fwd_bwd``: K3 statistics and a torch
-    normalize; the backward is the hand formula on the stashed (B, C)
+    normalize; the backward is ``gn_silu_bwd`` on the stashed (B, C)
     statistics."""
 
     @staticmethod
@@ -301,13 +456,11 @@ class _GroupNormStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight, bias, mean_c, rstd_c = ctx.saved_tensors
-        with span("ops.plain_backward", g, op="group_norm_stats"):
+        with span("ops.kernel_backward", g, op="group_norm_stats"):
             num_groups, swish = ctx.cfg
-            b, c = mean_c.shape
-            per_group = (b, num_groups, c // num_groups, 1, 1)
-            dx, dw, db = _gn_bwd(_grouped(x, num_groups), weight, bias, g,
-                                 mean_c.reshape(per_group),
-                                 rstd_c.reshape(per_group), swish, x.dtype)
+            dx, dw, db, _, _ = gn_silu_bwd(x, g, weight, bias, num_groups,
+                                           swish=swish,
+                                           stats=(mean_c, rstd_c))
             dw, db = dw.to(weight.dtype), db.to(bias.dtype)
         return dx, dw, db, None, None, None
 

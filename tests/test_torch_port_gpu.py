@@ -21,7 +21,11 @@ Functions against autograd of the plain versions: float32 1e-4; bfloat16
 gradients to bf16 once, and K2's hand backward differs from autograd's
 composition in where it rounds). K3's sums against float64 sums of the same
 inputs: s1 within 1e-5 of sum|x|, s2 within 1e-5 of s2. K1's halo entry
-(outside statistics, halo rows) against its plain version: as K1.
+(outside statistics, halo rows) against its plain version: as K1. The
+GroupNorm(+SiLU) backward kernel against ``gn_silu_bwd_plain``: float32
+1e-4 (sums in another order), bfloat16 dx (and its activation mode's act)
+GN_BWD_BF16_TOL, one bf16 step; each output relative to its own
+max|plain|.
 """
 
 import pytest
@@ -466,6 +470,139 @@ def test_statistics_route_function_matches_plain_autograd(gen, dtype):
     for got, ref in zip(*grads):
         assert got.dtype == ref.dtype
         assert rel(got, ref) <= TOL[dtype]["grad"]
+
+
+# bf16 dx of the GroupNorm backward: both sides compute in float32 from the
+# same bf16 inputs and round dx once, so they differ by at most one bf16
+# step, 2^-7 of an element (7.8e-3 of max|plain| at most). chip_smoke.py
+# read at most 3.3e-3 for dx and 2.2e-3 for act at the same seven shapes
+# on an H100
+GN_BWD_BF16_TOL = 8e-3
+
+
+def _bwd_inputs(gen, dtype, b, c, hw, pre=False):
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    x = (3 * r(b, c, hw, hw) + 1).to(dtype).contiguous(memory_format=CL)
+    dy = r(b, c, hw, hw).to(dtype).contiguous(memory_format=CL)
+    affine = dict(pre_scale=1 + 0.3 * r(b, c), pre_bias=0.5 * r(b, c)) \
+        if pre else {}
+    return x, dy, 1 + 0.2 * r(c), 0.1 * r(c), affine
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,hw,groups,swish,pre,given", [
+    # the main path's shapes: K2 at 16->128 (and K1's 192-channel input),
+    # its smallest maps, the 512^2 statistics route, a 1024^2 map
+    (128, 192, 128, 32, True, False, False),
+    (128, 512, 8, 32, True, False, True),
+    (16, 64, 512, 16, True, False, True),
+    (2, 64, 1024, 32, True, False, False),
+    # swish off (the attention pre-norm), K1's pre-affine, a ragged map
+    (4, 512, 16, 32, False, False, False),
+    (2, 64, 32, 32, True, True, True),
+    (3, 96, 10, 8, True, True, False),
+])
+def test_gn_bwd_kernel_matches_plain(gen, dtype, b, c, hw, groups, swish,
+                                     pre, given):
+    """dx, dgamma, dbeta (and the pre-affine's gradients) of the backward
+    kernel against gn_silu_bwd_plain, with the statistics taken by the
+    kernel or given (by gn_silu_act's launches, as K1 gives them)."""
+    x, dy, s, t, affine = _bwd_inputs(gen, dtype, b, c, hw, pre)
+    stats = None
+    if given:
+        n = groupnorm.act_counter.n
+        act, stats = groupnorm.gn_silu_act(x, s, t, groups, **affine)
+        assert groupnorm.act_counter.n == n + 1
+        ref_act, ref_stats = groupnorm.gn_silu_act_plain(x, s, t, groups,
+                                                         **affine)
+        assert rel(act, ref_act) <= (TOL[dtype]["k2"]
+                                     if dtype == torch.float32
+                                     else GN_BWD_BF16_TOL)
+        for got, ref in zip(stats, ref_stats):
+            assert rel(got, ref) <= 1e-5
+    n = groupnorm.bwd_counter.n
+    got = groupnorm.gn_silu_bwd(x, dy, s, t, groups, swish=swish, stats=stats,
+                                **affine)
+    assert groupnorm.bwd_counter.n == n + 1
+    want = groupnorm.gn_silu_bwd_plain(x, dy, s, t, groups, swish=swish,
+                                       stats=stats, **affine)
+    assert got[0].dtype == dtype and got[0].is_contiguous(memory_format=CL)
+    tol = {torch.float32: 1e-4, torch.bfloat16: GN_BWD_BF16_TOL}[dtype]
+    for name, g, w in zip(["dx", "dgamma", "dbeta", "dpre_scale",
+                           "dpre_bias"], got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert rel(g, w) <= (tol if name == "dx" else 1e-4), name
+
+
+@pytest.mark.parametrize("b,c,hw,groups", [(16, 64, 512, 16),
+                                           (2, 64, 1024, 32),
+                                           (128, 512, 8, 32)])
+def test_gn_bwd_two_calls_bit_identical(gen, b, c, hw, groups):
+    """Slices split over pixels and folded (16 blocks a slice at 16x64x512^2
+    and 132 at 2x64x1024^2 on a 132-SM H100), one block a slice at 8^2:
+    every output the same bits twice."""
+    x, dy, s, t, _ = _bwd_inputs(gen, torch.bfloat16, b, c, hw)
+    one, two = (groupnorm.gn_silu_bwd(x, dy, s, t, groups) for _ in range(2))
+    assert torch.equal(one[0].view(torch.int16), two[0].view(torch.int16))
+    for a, b_ in zip(one[1:3], two[1:3]):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
+
+
+def _config_net(name):
+    """The UNet of portbench's configuration ``name`` in training mode, on
+    the card, with its image size."""
+    import json
+    import os
+
+    from sr3_tpu_torch.models.networks import define_G
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", name + ".json")) as f:
+        opt = json.load(f)["opt"]
+    opt["phase"] = "train"
+    diffusion = define_G(opt, device="cuda")
+    return diffusion.denoise_fn.train(), opt["model"]["diffusion"][
+        "image_size"]
+
+
+@pytest.mark.parametrize("name,calls,k1", [("sr3_16_128", 61, 28),
+                                           ("sr3_64_512", 36, None)])
+def test_gn_bwd_calls_a_train_step_and_no_k1_statistics(gen, name, calls, k1):
+    """One train step (forward, backward) of each benchmark configuration
+    at batch 1 calls the backward kernel's wrapper once per K1 and K2 call
+    (16->128: 28 K1 + 33 K2), no plain backward, and launches K1's
+    statistics kernel in the backward only where remat replays the forward
+    (at most as often as in that forward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    net, size = _config_net(name)
+    x = torch.randn(1, net.in_channel, size, size, device="cuda",
+                    generator=gen).contiguous(memory_format=CL)
+    level = torch.tensor([0.5], device="cuda")
+
+    def stats_launches(prof):
+        return sum(1 for e in prof.profiler.kineto_results.events()
+                   if e.device_type() != DeviceType.CPU
+                   and "gn_stats_kernel" in e.name())
+
+    n, a = groupnorm.bwd_counter.n, groupnorm.act_counter.n
+    with profile(activities=[ProfilerActivity.CUDA]) as fwd:
+        out = net(x, level, generator=gen)
+        torch.cuda.synchronize()
+    loss = out.float().square().mean()
+    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+        loss.backward()
+        torch.cuda.synchronize()
+    assert groupnorm.bwd_counter.n - n == calls
+    if k1 is not None:
+        assert groupnorm.act_counter.n - a == k1
+    if net.remat:
+        assert 0 < stats_launches(bwd) <= stats_launches(fwd)
+    else:
+        assert stats_launches(bwd) == 0 < stats_launches(fwd)
+    assert all(p.grad is not None for p in net.parameters())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

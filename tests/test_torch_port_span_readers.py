@@ -1,7 +1,8 @@
 """The benchmark's readers of the port's own spans and counters
 (``portbench/metrics``: ``unet_device_ms.sample``,
 ``chain_device_ms.sample``, ``{forward,backward,optimizer}_device_ms.train``,
-``plain_backward_pct.train``, ``fused_block_pct.train``).
+``plain_backward_pct.train``, ``fused_block_pct.train``,
+``kernel_backward_pct.train``).
 
 Fed a registry with known device milliseconds and counts, each gives the
 value its docstring defines, and None where the registry, the spans or
@@ -27,6 +28,7 @@ NEW = {
     "optimizer_device_ms.train": ("program_span", "trainer", TRAIN),
     "plain_backward_pct.train": ("program_span", "kernels", TRAIN),
     "fused_block_pct.train": ("program_counter", "kernels", TRAIN),
+    "kernel_backward_pct.train": ("program_span", "kernels", TRAIN),
 }
 SPAN_READERS = sorted(n for n, v in NEW.items() if v[0] == "program_span")
 
@@ -63,6 +65,9 @@ TRAINING = [
     ("trainer.optimizer", 7, 0.5),
     ("ops.plain_backward", None, 100.0),  # under no backward
 ]
+# the same steps with the kernel backwards in the plain ones' place
+KERNEL_TRAINING = [(name.replace("ops.plain_backward", "ops.kernel_backward"),
+                    parent, ms) for name, parent, ms in TRAINING]
 WANT = {
     "unet_device_ms.sample": (CHAIN, 8.5),
     "chain_device_ms.sample": (CHAIN, 2.5),
@@ -70,6 +75,7 @@ WANT = {
     "backward_device_ms.train": (TRAINING, 11.0),
     "optimizer_device_ms.train": (TRAINING, 0.5),
     "plain_backward_pct.train": (TRAINING, 100.0 * 9.0 / 22.0),
+    "kernel_backward_pct.train": (KERNEL_TRAINING, 100.0 * 9.0 / 22.0),
 }
 
 

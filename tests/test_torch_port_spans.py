@@ -5,8 +5,8 @@ where the work happens, on the CPU with a tiny UNet.
   records nothing.
 - Under ``torch.profiler`` a resident train step records ``trainer.step``
   holding ``trainer.forward``, ``trainer.backward`` and
-  ``trainer.optimizer``; the plain backwards of K1 and K2
-  (``ops.plain_backward``) sit under the backward; a chain step of every
+  ``trainer.optimizer``; the kernel backwards of K1 and K2
+  (``ops.kernel_backward``) sit under the backward; a chain step of every
   sampler records ``chain.step`` holding ``chain.eps`` with its ``t``; a
   span opened on another thread hangs under the newest open span.
 - Every span's host interval lies inside the profiler's own event around
@@ -127,14 +127,16 @@ def test_the_plain_backwards_of_k1_and_k2_sit_under_the_backward(trainer):
     _profiled(lambda: trainer.optimize_parameters_resident(2, 1))
     recorded = profiler.spans()
     by_id = {s.id: s for s in recorded}
-    plain = _by_name(recorded)["ops.plain_backward"]
+    named = _by_name(recorded)
+    kernel = named["ops.kernel_backward"]
     # dropout sends every block2 through K2; block1 and the final Block
-    # through K1
-    assert {s.attrs["op"] for s in plain} == {"gn_silu_conv3x3",
-                                              "group_norm"}
-    for s in plain:
+    # through K1; no plain backward is left on their path
+    assert "ops.plain_backward" not in named
+    assert {s.attrs["op"] for s in kernel} == {"gn_silu_conv3x3",
+                                               "group_norm"}
+    for s in kernel:
         names = [a.name for a in _ancestors(s, by_id)]
-        assert names[:1] in (["trainer.backward"], ["ops.plain_backward"])
+        assert names[:1] in (["trainer.backward"], ["ops.kernel_backward"])
         assert "trainer.backward" in names and names[-1] == "trainer.step"
 
 
@@ -201,7 +203,7 @@ def test_spans_lie_inside_the_profilers_event_on_its_clock(trainer):
 
     start, end = _profiled(call)
     recorded = profiler.spans()
-    assert {"trainer.step", "chain.step", "ops.plain_backward"} <= {
+    assert {"trainer.step", "chain.step", "ops.kernel_backward"} <= {
         s.name for s in recorded}
     for s in recorded:
         assert start <= s.start_ns <= s.end_ns <= end, s.name
@@ -217,8 +219,8 @@ def test_trace_writes_the_spans_into_its_file(tmp_path, trainer):
     call = [e for e in events if e.get("name") == "call"]
     ours = [e for e in events if e.get("cat") == "sr3_span"]
     assert len(call) == 1
-    assert {e["name"] for e in ours} == {"trainer.step", "ops.plain_backward",
-                                         *PHASES}
+    assert {e["name"] for e in ours} == {"trainer.step",
+                                         "ops.kernel_backward", *PHASES}
     assert len(ours) == len(profiler.spans())
     c0, c1 = call[0]["ts"], call[0]["ts"] + call[0]["dur"]
     for e in ours:
