@@ -191,7 +191,18 @@ The last drivers and configs (after phase 29):
      deltas exactly 0, every forward kernel launched;
  41. bench: python -m sr3_tpu_torch.bench in a subprocess at
      BENCH_STEPS=200: the five lines in order, finite positive values,
-     0 < mfu <= 1 on the train and headline lines, the card's name on each.
+     0 < mfu <= 1 on the train and headline lines, the card's name on each;
+ 42. ADM 128->512 (portbench/configs/adm_128_512.json, guided-diffusion's
+     upsampler at its published widths, bf16; runs after phase 17): one
+     batch-8 forward, counters zeroed just before it: K1 once at each site
+     of the benchmark reference's list (portbench/reference/adm.py
+     k1_sites: ADM_K1_SITES calls, ADM_SCALE_SHIFT_SITES of them with the
+     scale-shift after the norm, every one counted by block.scale_shift),
+     a finite (8, 6, 512, 512) output; then K1's scale-shift route and its
+     wide statistics launch timed at K1_ADM as phase 17 (ms, plain_ms,
+     bound_ms). Phase 3 checks K1 at K1_ADM against its plain version in
+     float32 and bf16 (the float32 512^2 case at batch 2), and K2 at
+     K2_SITES_ADM at batch 8, each list checked against the reference.
 Every timed UNet step, train step and strided chain (phases 6, 9, 15,
 16, 18, 21, 24, 25, 39) also prints its MFU: the FLOPs utils/flops.py
 counts for it over its median ms, against 989 TFLOP/s.
@@ -267,7 +278,8 @@ forward; and on the other paths: launches_* keys, each path's counters
 zeroed just before it; the parallel paths from rank 0; phase 36's 8-worker
 run and phase 37's steps as launches_16_128_train_files / _lmdb), max error
 and times
-(timings_sample_ddpm_128: phase 22; timings_128_1024: phase 29), and
+(timings_sample_ddpm_128: phase 22; timings_128_1024: phase 29;
+timings_adm_128_512: phase 42), and
 last the line {"ok": true,
 "device": {...}}. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -463,6 +475,24 @@ TIME_STEPS_1024 = 5
 RESIDENT_PAIRS = 64
 RESIDENT_K = 4
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3
+# guided-diffusion's 128->512 upsampler (the benchmark's ADM cell): K1 at
+# its shapes (b, Cin, Cout, H=W, scale-shift): out_layers with the
+# per-(b, c) scale-shift after the norm and the skip as residual at 512^2
+# and 16^2, up-path in_layers over 1536 and 1152 concatenated channels (no
+# affine; K1's statistics launch takes up to 2048 channels); phase 3 checks
+# each against the reference's sites, phase 42 times them
+CONFIG_ADM = os.path.join(ROOT, "portbench", "configs", "adm_128_512.json")
+K1_ADM = [(8, 192, 192, 512, True), (8, 768, 768, 16, True),
+          (8, 1536, 768, 16, False), (8, 1152, 384, 64, False)]
+# K1 calls of one ADM forward, and those with the scale-shift (every
+# ResBlock's out_layers)
+ADM_K1_SITES, ADM_SCALE_SHIFT_SITES = 75, 42
+# (C, H=W, swish) of its K2 calls: the GroupNorm+SiLU of the down / up
+# ResBlocks on maps below 256^2 and the attention norms; phase 3 checks the
+# list against the reference (adm_k2_sites) and runs them at batch 8
+K2_SITES_ADM = [(384, 128, True), (384, 64, True), (768, 32, True),
+                (768, 16, True), (768, 32, False), (768, 16, False)]
+
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # name: (source, the TPU kernel it replaces, route by input dtype)
@@ -679,6 +709,54 @@ def _k1_inputs(torch, g, b, cin, cout, hw, dtype, film):
     return (x, gw, gb, w, bias, 32), kw
 
 
+def _adm_opt():
+    with open(CONFIG_ADM) as f:
+        return json.load(f)["opt"]
+
+
+def _adm_reference():
+    from portbench.reference import adm
+
+    return adm
+
+
+def adm_k2_sites():
+    """(C, H, swish) of each K2 call of one ADM forward, in order, read off
+    the benchmark reference on the meta device: the GroupNorm+SiLU at the
+    input of each down / up ResBlock on maps below STATS_MIN_HW (larger
+    ones take the statistics route), and every attention norm (no SiLU)."""
+    from sr3_tpu_torch.ops.groupnorm import STATS_MIN_HW
+
+    adm, opt, out = _adm_reference(), _adm_opt(), []
+
+    def hook(block, args):
+        _, c, h, w = args[0].shape
+        if isinstance(block, adm.AttentionBlock):
+            out.append((c, h, False))
+        elif (block.up or block.down) and h * w < STATS_MIN_HW:
+            out.append((c, h, True))
+
+    net = adm.build(opt, "meta")
+    for m in net.modules():
+        if isinstance(m, (adm.ResBlock, adm.AttentionBlock)):
+            m.register_forward_pre_hook(hook)
+    net(*adm._meta_inputs(opt, 1))
+    return out
+
+
+def _k1_adm_inputs(torch, g, dtype, b, cin, cout, hw, post):
+    """K1's inputs at an ADM site: x, GroupNorm affine and conv as
+    _k1_inputs; with ``post`` a per-(b, c) scale and shift after the norm
+    and a residual, else no affine."""
+    args, _ = _k1_inputs(torch, g, b, cin, cout, hw, dtype, False)
+    if not post:
+        return args, {}
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    return args, dict(post_scale=0.3 * r(b, cin), post_shift=0.5 * r(b, cin),
+                      residual=r(b, cout, hw, hw).to(dtype).contiguous(
+                          memory_format=torch.channels_last))
+
+
 @phase("kernels")
 def kernel_phase(torch, errs):
     from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
@@ -701,6 +779,15 @@ def kernel_phase(torch, errs):
         if sorted(set(sites)) != sorted(shapes):
             failures.append(f"K1 shapes of {os.path.basename(config)}: the "
                             f"model's {sorted(set(sites))}")
+    adm_sites = {(s["b"], s["cin"], s["cout"], s["h"], s["post"])
+                 for s in _adm_reference().k1_sites(_adm_opt(), 8)}
+    for case in K1_ADM:
+        if case not in adm_sites:
+            failures.append(f"K1 ADM case {case} is no site of the "
+                            f"reference's batch-8 forward")
+    if sorted(set(adm_k2_sites())) != sorted(K2_SITES_ADM):
+        failures.append(f"K2 sites of the ADM: the reference's "
+                        f"{sorted(set(adm_k2_sites()))}")
     k1_cases = ([(BATCH_CHECK, *s) for s in K1_SHAPES]
                 + [(BATCH_CHECK_512, *s) for s in K1_SHAPES_512]
                 + K1_SERVING_512
@@ -723,6 +810,7 @@ def kernel_phase(torch, errs):
         for b in k2_batches(opt):
             k2_cases += [(b, c, h, h, groups, swish) for c, h, swish in sites
                          if (b, c, h, h, groups, swish) not in k2_cases]
+    k2_cases += [(8, c, h, h, 32, swish) for c, h, swish in K2_SITES_ADM]
     checked_tiles, checked_clusters, checked_k4 = set(), set(), set()
     checked_bwd = set()
     for dtype in (torch.float32, torch.bfloat16):
@@ -742,6 +830,23 @@ def kernel_phase(torch, errs):
                 record("gn_silu_conv3x3", dn, label, out,
                        conv_fused.gn_silu_conv3x3_plain(*args, **kw))
                 del args, kw, out
+        for case in K1_ADM:
+            if dtype == torch.float32 and case[3] == 512:
+                case = (2,) + case[1:]  # the float32 plain's intermediates
+            args, kw = _k1_adm_inputs(torch, g, dtype, *case)
+            conv_fused.bf16_tile_launches(reset=True)
+            out = conv_fused.gn_silu_conv3x3(*args, **kw)
+            b, cin, cout, hw, post = case
+            label = (f"ADM {b}x{cin}x{hw}x{hw}->{cout}"
+                     + (" +scale-shift+residual" if post else ""))
+            if dtype == torch.bfloat16:
+                tiles = [t for t, n in
+                         conv_fused.bf16_tile_launches().items() if n]
+                label += " tile " + ",".join(tiles)
+                checked_tiles.update(tiles)
+            record("gn_silu_conv3x3", dn, label, out,
+                   conv_fused.gn_silu_conv3x3_plain(*args, **kw))
+            del args, kw, out
         for b, c, h, w, groups, swish in k2_cases:
             x = torch.randn(b, c, h, w, device="cuda", generator=g)
             x = (3 * x + 1).to(dtype).contiguous(memory_format=torch.channels_last)
@@ -2218,6 +2323,74 @@ def _time_entry(torch, name, shape, fn, plain, library, flops, nbytes):
           f"{show('library_device_ms')}; bound {bound_ms:.4f} ({by}; "
           f"kernel device time {t['device_ms'] / bound_ms:.1f}x)", flush=True)
     return {**t, "bound_ms": bound_ms, "bound_by": by, "shape": shape}
+
+
+@phase("ADM 128->512")
+def adm_phase(torch):
+    """One batch-8 bf16 forward of guided-diffusion's 128->512 upsampler at
+    its published widths, counters zeroed just before it: K1 once at each
+    site of the benchmark reference's list, the scale-shift route at each
+    ResBlock's out_layers. Then K1 at K1_ADM timed as phase 17. Returns
+    the forward's launches by kernel and the timings."""
+    from sr3_tpu_torch.models import adm_unet
+    from sr3_tpu_torch.ops import conv_fused
+
+    opt = _adm_opt()
+    sites = _adm_reference().k1_sites(opt, 8)
+    if (len(sites), sum(s["post"] for s in sites)) != \
+            (ADM_K1_SITES, ADM_SCALE_SHIFT_SITES):
+        raise AssertionError(f"the reference lists {len(sites)} K1 sites, "
+                             f"{sum(s['post'] for s in sites)} with the "
+                             f"scale-shift; expected {ADM_K1_SITES}, "
+                             f"{ADM_SCALE_SHIFT_SITES}")
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        net = adm_unet.adm_from_opt(opt["model"], torch.bfloat16)
+    net = net.to(memory_format=torch.channels_last).eval()
+    g = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(8, 3, 512, 512, device="cuda", generator=g)
+    low = torch.rand(8, 3, 128, 128, device="cuda", generator=g) * 2 - 1
+    t = torch.randint(0, 1000, (8,), device="cuda", generator=g)
+    y = torch.randint(0, 1000, (8,), device="cuda", generator=g)
+    for c in counters() + [adm_unet.scale_shift_blocks]:
+        c.n = 0
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = net(x, t, low, y)
+    torch.cuda.synchronize()
+    launches = launches_of(KERNELS)
+    scale_shift = adm_unet.scale_shift_blocks.n
+    print(f"  batch-8 bf16 forward: launches {launches}, block.scale_shift "
+          f"{scale_shift}, peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB", flush=True)
+    if (launches["gn_silu_conv3x3"], scale_shift) != \
+            (ADM_K1_SITES, ADM_SCALE_SHIFT_SITES):
+        raise AssertionError(f"K1 launched {launches['gn_silu_conv3x3']} "
+                             f"times, {scale_shift} with the scale-shift; "
+                             f"the reference lists {ADM_K1_SITES}, "
+                             f"{ADM_SCALE_SHIFT_SITES}")
+    if tuple(out.shape) != (8, 6, 512, 512) or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f"ADM output {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    del net, x, low, out
+    torch.cuda.empty_cache()
+    timings = []
+    for case in K1_ADM:
+        b, cin, cout, hw, post = case
+        args, kw = _k1_adm_inputs(torch, g, torch.bfloat16, *case)
+        n = b * hw * hw
+        shape = (f"{b}x{cin}x{hw}x{hw}->{cout}"
+                 + (" +scale-shift+residual" if post else ""))
+        timings.append(_time_entry(
+            torch, "gn_silu_conv3x3", shape,
+            lambda: conv_fused.gn_silu_conv3x3(*args, **kw),
+            lambda: conv_fused.gn_silu_conv3x3_plain(*args, **kw), None,
+            2 * n * cin * cout * 9,
+            2 * (2 * n * cin + n * cout * (2 if post else 1)
+                 + cout * cin * 9)))
+        del args, kw
+    return launches, timings
 
 
 @phase("64->512 kernel timing")
@@ -4526,6 +4699,7 @@ def main():
         del trainer
         serving_512 = serving_512_phase(torch)
         timings = kernel_timing_512_phase(torch)
+        launches_adm, timings_adm = adm_phase(torch)
         k4_class_phase(checked_k4, "phase 11")
         # the rest of the sampling surface: ddpm, unconditional
         ddpm = ddpm_phase(torch)
@@ -4575,7 +4749,8 @@ def main():
         "64_512_train_space2": par["space"]["bfloat16_train"]["launches"],
         "128_1024_serving_space2": par["space"]["1024"]["launches"],
         "16_128_train_files": launches_files,
-        "16_128_train_lmdb": launches_lmdb}
+        "16_128_train_lmdb": launches_lmdb,
+        "adm_128_512_serving": launches_adm}
     kernels = []
     for name, (source, replaces, routes) in KERNELS.items():
         entry = {
@@ -4605,6 +4780,8 @@ def main():
             entry["timings_sample_ddpm_128"] = timings_ddpm_128[name]
         if name in timings_1024:
             entry["timings_128_1024"] = timings_1024[name]
+        if name == "gn_silu_conv3x3":
+            entry["timings_adm_128_512"] = timings_adm
         if name in times:
             entry["ms_16_128"], entry["plain_ms_16_128"] = times[name]
         kernels.append(entry)

@@ -654,6 +654,7 @@ __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 //     (a ticket counter, reset by that block) folds the slots in index order
 //     and writes mult / add.
 constexpr int kGnMaxChannels = 1024;
+constexpr int kGnStatsMaxChannels = 2048;  // K1's statistics launch
 constexpr int kGnThreads = 256;        // per block, when vec > 1
 constexpr int kGnMinBlocksPerSm = 3;   // registers: __launch_bounds__
 constexpr int kGnClusterRowBytes = 64;   // K2: a block's bytes of a pixel
@@ -768,6 +769,16 @@ inline bool gn_takes(int B, int HW, int C, int G) {
          C <= kGnMaxChannels && G >= 1 && C % G == 0;
 }
 
+// Whether K1's statistics launch takes (B, HW, C, G) of `elem`-byte
+// elements: up to kGnStatsMaxChannels channels (the concatenated inputs of
+// a UNet's up path), where a block's channels fit one block of threads
+// even one channel a thread.
+inline bool gn_stats_takes(int B, int HW, int C, int G, int elem) {
+  return B >= 1 && B <= 65535 && HW >= 1 && C >= 1 &&
+         C <= kGnStatsMaxChannels && G >= 1 && C % G == 0 &&
+         gn_block_channels(C, G, elem, kGnStatsRowBytes) <= kGnMaxChannels;
+}
+
 // Where the slots start in K1's statistics workspace: after mult and add,
 // 16-byte aligned.
 inline size_t gn_slots_offset(int B, int C) {
@@ -778,7 +789,9 @@ inline size_t gn_slots_offset(int B, int C) {
 // slots of the blocks' sums (B, C / cb, splits, 2, cb) when splits > 1;
 // -1 when the kernels do not take the shape or the device is unknown.
 inline long long gn_workspace_floats(int B, int HW, int C, int G, int dtype) {
-  if (!gn_takes(B, HW, C, G) || (dtype != kF32 && dtype != kBF16)) return -1;
+  if ((dtype != kF32 && dtype != kBF16) ||
+      !gn_stats_takes(B, HW, C, G, dtype == kF32 ? 4 : 2))
+    return -1;
   int sms = 0;
   if (sm_count(&sms) != cudaSuccess) return -1;
   const GnPlan p = gn_stats_plan(B, HW, C, G, dtype == kF32 ? 4 : 2, true,
@@ -794,11 +807,16 @@ inline float* gn_add(float* workspace, int B, int C) {
 
 // K1's statistics in one launch (groupnorm.cu): mult / add of
 // pre_scale*x + pre_bias into the workspace. `tickets`: B*C int32 that are
-// 0 before the launch and 0 again after it.
+// 0 before the launch and 0 again after it. With post_scale / post_shift
+// ((B, C) float32, either may be null) the normalized value is scaled and
+// shifted after the norm, (x*mult + add)*(1 + post_scale) + post_shift,
+// folded into the same mult / add.
 cudaError_t launch_gn_stats(const void* x, int dtype, const float* pre_scale,
                             const float* pre_bias, const float* gamma,
                             const float* beta, float* workspace,
                             int* tickets, int B, int HW, int C, int G,
-                            float eps, cudaStream_t stream);
+                            float eps, cudaStream_t stream,
+                            const float* post_scale = nullptr,
+                            const float* post_shift = nullptr);
 
 }  // namespace sr3

@@ -20,9 +20,17 @@
 // 2 runs, reading those rows where the map's own entry reads zero padding.
 // The TPU package runs no kernel under its spatial sharding.
 //
+// With post_scale / post_shift the entry serves guided-diffusion's
+// ADM ResBlocks, which scale and shift the normalized map per (batch,
+// channel) after the norm, GN(x)*(1 + s) + t: 75 calls a forward of the
+// 128->512 upsampler (C_in 192..1536 at 512^2..16^2; its up path
+// concatenates up to 1536 channels, which K1's statistics launch takes up
+// to kGnStatsMaxChannels).
+//
 // Launch 1 (launch_gn_stats, groupnorm.cu), both routes: group statistics
 // of a*x+b and the per-channel mult/add of the normalize, so the normalized
-// value of a channel is x*mult + add. Launch 2 (this file) normalizes, SiLUs
+// value of a channel is x*mult + add; with the scale-shift, mult*(1 + s)
+// and add*(1 + s) + t. Launch 2 (this file) normalizes, SiLUs
 // and rounds the input halo to the working type in shared memory -- the
 // normalized map never goes to device memory -- with zeros outside the image
 // (the padding belongs to the normalized map, so border taps read 0, not
@@ -585,26 +593,30 @@ cudaError_t launch_conv(const void* x, const void* top, const void* bottom,
 
 }  // namespace
 
-// y = conv3x3(SiLU(GroupNorm(pre_scale*x + pre_bias))) + bias (+ res).
+// y = conv3x3(SiLU(GroupNorm(pre_scale*x + pre_bias)*(1 + post_scale) +
+// post_shift)) + bias (+ res).
 // x: (B,H,W,Cin), w: (Cout,3,3,Cin), res/y: (B,H,W,Cout), all of dtype;
-// pre_scale/pre_bias: (B,Cin) float32 or null; gamma/beta: (Cin) float32;
+// pre_scale/pre_bias: (B,Cin) float32 or null; post_scale/post_shift:
+// (B,Cin) float32 or null (the scale-shift conditioning of guided-diffusion's
+// ResBlocks; they fold into the statistics launch's per-(batch, channel)
+// mult / add, so the conv launch is the same, and with both null the
+// statistics launch is the SR3 route's); gamma/beta: (Cin) float32;
 // bias: (Cout) float32 or null; workspace: sr3_gn_workspace_floats(B, H*W,
 // Cin, G, dtype) float32 scratch (groupnorm.cu); tickets: B*Cin int32, 0
 // before the call and left 0 by it. bfloat16 needs Cin % 16 == 0.
 // Returns the CUDA error code (0 on success).
-extern "C" int sr3_gn_silu_conv3x3(const void* x, const float* pre_scale,
-                                   const float* pre_bias, const float* gamma,
-                                   const float* beta, const void* w,
-                                   const float* bias, const void* res,
-                                   void* y, float* workspace, int* tickets,
-                                   int B, int H, int W, int Cin, int Cout,
-                                   int G, float eps, int dtype,
-                                   void* stream) {
+extern "C" int sr3_gn_silu_conv3x3(
+    const void* x, const float* pre_scale, const float* pre_bias,
+    const float* post_scale, const float* post_shift, const float* gamma,
+    const float* beta, const void* w, const float* bias, const void* res,
+    void* y, float* workspace, int* tickets, int B, int H, int W, int Cin,
+    int Cout, int G, float eps, int dtype, void* stream) {
   if (dtype == sr3::kBF16 && Cin % kCK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = sr3::launch_gn_stats(x, dtype, pre_scale, pre_bias, gamma,
                                          beta, workspace, tickets, B, H * W,
-                                         Cin, G, eps, st);
+                                         Cin, G, eps, st, post_scale,
+                                         post_shift);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_conv(x, nullptr, nullptr, workspace,
                           sr3::gn_add(workspace, B, Cin), w, bias, res, y, B,

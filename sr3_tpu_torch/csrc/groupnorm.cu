@@ -395,15 +395,21 @@ __global__ void __launch_bounds__(V == 1 ? kGnMaxChannels : kGnThreads,
 // K1's statistics. Grid (splits, C / cb, B); block rows*cols threads;
 // dynamic shared memory as gn_stats_plan. mult / add: (B, C); slots:
 // (B, C / cb, splits, 2, cb), 16-byte aligned, when splits > 1; tickets:
-// (B, C / cb), 0 on entry and on exit.
-template <typename T, int V>
+// (B, C / cb), 0 on entry and on exit. kPost: a separate instantiation
+// that scales and shifts the normalized value after the norm
+// (post_scale / post_shift, (B, C), either may be null), so the one
+// without it compiles to the kernel it was before.
+template <typename T, int V, bool kPost>
 __global__ void __launch_bounds__(V == 1 ? kGnMaxChannels : kGnThreads,
                                   V == 1 ? 1 : kGnMinBlocksPerSm)
     gn_stats_kernel(const T* __restrict__ x,
                     const float* __restrict__ pre_scale,
                     const float* __restrict__ pre_bias,
                     const float* __restrict__ gamma,
-                    const float* __restrict__ beta, float* __restrict__ mult,
+                    const float* __restrict__ beta,
+                    const float* __restrict__ post_scale,
+                    const float* __restrict__ post_shift,
+                    float* __restrict__ mult,
                     float* __restrict__ add, float* __restrict__ slots,
                     int* __restrict__ tickets, int HW, int C, int cg, int cb,
                     int per, float eps) {
@@ -512,9 +518,20 @@ __global__ void __launch_bounds__(V == 1 ? kGnMaxChannels : kGnThreads,
     }
   }
   __syncthreads();
+  float* m = mult + (size_t)b * C + c0;
+  float* ad = add + (size_t)b * C + c0;
   gn_fold(tot, tot + cb, gst, cb, cg, (float)HW * (float)cg, eps, gamma + c0,
-          beta + c0, pa, po, mult + (size_t)b * C + c0,
-          add + (size_t)b * C + c0);
+          beta + c0, pa, po, m, ad);
+  if constexpr (kPost) {
+    // (x*mult + add)*(1 + s) + t; each thread rereads the channels it
+    // wrote in gn_fold
+    const size_t bc = (size_t)b * C + c0;
+    for (int ch = threadIdx.x; ch < cb; ch += blockDim.x) {
+      const float k = 1.f + (post_scale ? post_scale[bc + ch] : 0.f);
+      m[ch] *= k;
+      ad[ch] = fmaf(ad[ch], k, post_shift ? post_shift[bc + ch] : 0.f);
+    }
+  }
 }
 
 bool aligned16(const void* p, const void* q) {
@@ -522,26 +539,44 @@ bool aligned16(const void* p, const void* q) {
           16) == 0;
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kPost>
 cudaError_t stats_t(const T* x, const float* pre_scale, const float* pre_bias,
-                    const float* gamma, const float* beta, float* workspace,
-                    int* tickets, int B, int HW, int C, int G, float eps,
-                    const GnPlan& p, cudaStream_t st) {
+                    const float* gamma, const float* beta,
+                    const float* post_scale, const float* post_shift,
+                    float* workspace, int* tickets, int B, int HW, int C,
+                    int G, float eps, const GnPlan& p, cudaStream_t st) {
   float* mult = workspace;
   float* add = gn_add(workspace, B, C);
-  gn_stats_kernel<T, V>
+  gn_stats_kernel<T, V, kPost>
       <<<dim3(p.splits, C / p.cb, B), p.threads, p.smem, st>>>(
-          x, pre_scale, pre_bias, gamma, beta, mult, add,
-          workspace + gn_slots_offset(B, C), tickets, HW, C, C / G, p.cb,
-          p.per, eps);
+          x, pre_scale, pre_bias, gamma, beta, post_scale, post_shift, mult,
+          add, workspace + gn_slots_offset(B, C), tickets, HW, C, C / G,
+          p.cb, p.per, eps);
   return cudaGetLastError();
+}
+
+template <typename T, bool kPost>
+cudaError_t stats_post(const T* x, const float* pre_scale,
+                       const float* pre_bias, const float* gamma,
+                       const float* beta, const float* post_scale,
+                       const float* post_shift, float* workspace,
+                       int* tickets, int B, int HW, int C, int G, float eps,
+                       const GnPlan& p, cudaStream_t st) {
+  if (p.vec > 1)
+    return stats_t<T, 16 / sizeof(T), kPost>(
+        x, pre_scale, pre_bias, gamma, beta, post_scale, post_shift,
+        workspace, tickets, B, HW, C, G, eps, p, st);
+  return stats_t<T, 1, kPost>(x, pre_scale, pre_bias, gamma, beta,
+                              post_scale, post_shift, workspace, tickets, B,
+                              HW, C, G, eps, p, st);
 }
 
 template <typename T>
 cudaError_t stats_dtype(const void* xv, const float* pre_scale,
                         const float* pre_bias, const float* gamma,
-                        const float* beta, float* workspace, int* tickets,
-                        int B, int HW, int C, int G, float eps,
+                        const float* beta, const float* post_scale,
+                        const float* post_shift, float* workspace,
+                        int* tickets, int B, int HW, int C, int G, float eps,
                         cudaStream_t st) {
   const T* x = static_cast<const T*>(xv);
   int sms = 0;
@@ -550,12 +585,13 @@ cudaError_t stats_dtype(const void* xv, const float* pre_scale,
   const bool aligned = aligned16(x, x);
   const GnPlan p = gn_stats_plan(B, HW, C, G, sizeof(T), aligned, sms);
   if (p.splits > 1 && !tickets) return cudaErrorInvalidValue;
-  if (p.vec > 1)
-    return stats_t<T, 16 / sizeof(T)>(x, pre_scale, pre_bias, gamma, beta,
-                                      workspace, tickets, B, HW, C, G, eps, p,
-                                      st);
-  return stats_t<T, 1>(x, pre_scale, pre_bias, gamma, beta, workspace,
-                       tickets, B, HW, C, G, eps, p, st);
+  if (post_scale || post_shift)
+    return stats_post<T, true>(x, pre_scale, pre_bias, gamma, beta,
+                               post_scale, post_shift, workspace, tickets, B,
+                               HW, C, G, eps, p, st);
+  return stats_post<T, false>(x, pre_scale, pre_bias, gamma, beta, nullptr,
+                              nullptr, workspace, tickets, B, HW, C, G, eps,
+                              p, st);
 }
 
 // K2's launches since the last reset, by dtype (0 float32, 1 bfloat16),
@@ -626,15 +662,17 @@ cudaError_t launch_gn_stats(const void* x, int dtype, const float* pre_scale,
                             const float* pre_bias, const float* gamma,
                             const float* beta, float* workspace,
                             int* tickets, int B, int HW, int C, int G,
-                            float eps, cudaStream_t stream) {
-  if (!gn_takes(B, HW, C, G)) return cudaErrorInvalidValue;
-  if (dtype == kF32)
-    return stats_dtype<float>(x, pre_scale, pre_bias, gamma, beta, workspace,
-                              tickets, B, HW, C, G, eps, stream);
-  if (dtype == kBF16)
+                            float eps, cudaStream_t stream,
+                            const float* post_scale,
+                            const float* post_shift) {
+  if (dtype == kF32 && gn_stats_takes(B, HW, C, G, 4))
+    return stats_dtype<float>(x, pre_scale, pre_bias, gamma, beta,
+                              post_scale, post_shift, workspace, tickets, B,
+                              HW, C, G, eps, stream);
+  if (dtype == kBF16 && gn_stats_takes(B, HW, C, G, 2))
     return stats_dtype<__nv_bfloat16>(x, pre_scale, pre_bias, gamma, beta,
-                                      workspace, tickets, B, HW, C, G, eps,
-                                      stream);
+                                      post_scale, post_shift, workspace,
+                                      tickets, B, HW, C, G, eps, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -655,12 +693,13 @@ extern "C" long long sr3_gn_workspace_floats(int B, int HW, int C, int G,
 // shape.
 extern "C" int sr3_gn_plan(int B, int HW, int C, int G, int dtype, int route,
                            long long* out) {
-  if (!sr3::gn_takes(B, HW, C, G) ||
-      (dtype != sr3::kF32 && dtype != sr3::kBF16))
+  if (dtype != sr3::kF32 && dtype != sr3::kBF16) return -1;
+  const int elem = dtype == sr3::kF32 ? 4 : 2;
+  if (route == 0 ? !sr3::gn_takes(B, HW, C, G)
+                 : !sr3::gn_stats_takes(B, HW, C, G, elem))
     return -1;
   int sms = 0;
   if (sr3::sm_count(&sms) != cudaSuccess) return -1;
-  const int elem = dtype == sr3::kF32 ? 4 : 2;
   const sr3::GnPlan p =
       route == 0 ? sr3::gn_cluster_plan(B, HW, C, G, elem, true, sms)
                  : sr3::gn_stats_plan(B, HW, C, G, elem, true, sms);

@@ -7,7 +7,15 @@ share one implementation, as there:
   level per sample inside bin t; sampling conditions the net on
   ``sqrt_alphas_cumprod_prev[t+1]``;
 - ``cond_mode='ddpm'``: training draws an integer t in [0, T) per sample
-  and noises with ``q_sample_t``; the net is conditioned on float t.
+  and noises with ``q_sample_t``; the net is conditioned on float t;
+- ``cond_mode='adm'``: guided-diffusion's class-conditional
+  super-resolution (``models/adm_unet.py``), serving only: the condition is
+  an ``SRCondition`` (the low-resolution image and the class labels); the
+  net is conditioned on the original timestep ``sched.timestep_map[t]`` of
+  a respaced schedule and returns the noise estimate and, with a learned
+  variance, v beside it; the step's log variance is guided-diffusion's
+  learned range, (v+1)/2 log beta_t + (1 - (v+1)/2) log posterior
+  variance_t.
 
 Chains: the ancestral ``p_sample_loop`` (conditional, or unconditional from
 a shape), ``interpolate`` (ddpm), the strided ``ddim_sample_loop`` and
@@ -30,12 +38,33 @@ around the network's call, both with the step's ``t``
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sr3_tpu_torch.utils.profiler import span
 
 CL = torch.channels_last
+COND_MODES = ("sr3", "ddpm", "adm")
+
+
+@dataclasses.dataclass(frozen=True)
+class SRCondition:
+    """The condition of a class-conditional super-resolution chain: the
+    low-resolution images (b, c, h, w) and their class labels (b,) or None,
+    indexed together along the batch."""
+
+    image: torch.Tensor
+    labels: torch.Tensor | None = None
+
+    def __getitem__(self, idx):
+        return SRCondition(self.image[idx], None if self.labels is None
+                           else self.labels[idx])
+
+    def __len__(self):
+        return self.image.shape[0]
 
 
 def _snapshot_count(num_steps):
@@ -82,8 +111,8 @@ class GaussianDiffusion:
 
     def __init__(self, denoise_fn, image_size, channels=3, loss_type="l1",
                  conditional=True, cond_mode="sr3"):
-        if cond_mode not in ("sr3", "ddpm"):
-            raise ValueError(f"cond_mode must be 'sr3' or 'ddpm', got "
+        if cond_mode not in COND_MODES:
+            raise ValueError(f"cond_mode must be one of {COND_MODES}, got "
                              f"{cond_mode!r}")
         self.denoise_fn = denoise_fn
         self.image_size = image_size
@@ -102,6 +131,9 @@ class GaussianDiffusion:
         and, for sr3, ``sqrt_gamma`` (b, 1) or, for ddpm, ``t`` (b,)
         integers, replacing those draws (the parity-test seam). Returns the
         scalar sum-loss / (b*c*h*w)."""
+        if self.cond_mode == "adm":
+            raise NotImplementedError("training the ADM (its hybrid loss) "
+                                      "is not ported")
         x_start = batch["HR"]
         b, device = x_start.shape[0], x_start.device
         injected = injected or {}
@@ -144,9 +176,15 @@ class GaussianDiffusion:
 
     def _eps_at(self, net, sched, img, t, condition_x=None):
         """eps prediction at host timestep ``t`` with the mode's
-        conditioning: sqrt_alphas_cumprod_prev[t+1] (sr3) or float t
-        (ddpm)."""
+        conditioning: sqrt_alphas_cumprod_prev[t+1] (sr3), float t (ddpm),
+        or (adm) the original timestep timestep_map[t] with the
+        ``SRCondition``'s image and labels; the adm network's output holds
+        v after eps."""
         b = img.shape[0]
+        if self.cond_mode == "adm":
+            return net(img.contiguous(memory_format=CL),
+                       sched.timestep_map[t].expand(b), condition_x.image,
+                       condition_x.labels)
         if self.cond_mode == "sr3":
             lvl = sched.sqrt_alphas_cumprod_prev[t + 1].expand(b)
         else:
@@ -161,6 +199,9 @@ class GaussianDiffusion:
         with span("chain.step", img, t=t):
             with span("chain.eps", img, t=t):
                 eps = self._eps_at(net, sched, img, t, condition_x)
+            learned = None
+            if eps.shape[1] != img.shape[1]:  # adm: eps, then v
+                eps, learned = eps[:, :img.shape[1]], eps[:, img.shape[1]:]
             x_recon = (sched.sqrt_recip_alphas_cumprod[t] * img
                        - sched.sqrt_recipm1_alphas_cumprod[t] * eps)
             if clip_denoised:
@@ -171,13 +212,25 @@ class GaussianDiffusion:
                 return mean
             if noise is None:
                 noise = randn(img.shape, generator, img.device)
-            return mean + torch.exp(
-                0.5 * sched.posterior_log_variance_clipped[t]) * noise
+            if learned is None:
+                return mean + torch.exp(
+                    0.5 * sched.posterior_log_variance_clipped[t]) * noise
+            frac = (learned + 1.0) * 0.5
+            log_var = (frac * sched.log_betas[t] + (1.0 - frac)
+                       * sched.posterior_log_variance_clipped[t])
+            return mean + torch.exp(0.5 * log_var) * noise
 
     def _chain_start(self, net, x_in, generator, noise_stream):
         """(condition or None, shape, initial image, step noises or None)
         of a chain from a condition image or, unconditional, a shape."""
-        if self.conditional:
+        if self.cond_mode == "adm":
+            if not isinstance(x_in, SRCondition):
+                raise TypeError("an adm chain starts from an SRCondition")
+            condition_x = SRCondition(x_in.image.float(), x_in.labels)
+            shape = (len(x_in), self.channels, self.image_size,
+                     self.image_size)
+            device = x_in.image.device
+        elif self.conditional:
             condition_x = x_in.float()
             shape, device = tuple(x_in.shape), x_in.device
         else:
@@ -194,13 +247,18 @@ class GaussianDiffusion:
         """Process frames ((1 + n_snap) * b, c, h, w): frame 0 is the
         condition, or the initial noise when unconditional."""
         first = condition_x if self.conditional else img0
+        if isinstance(first, SRCondition):  # the network's upsampled view
+            first = F.interpolate(first.image, size=tuple(img0.shape[2:]),
+                                  mode="bilinear", align_corners=False)
         return torch.cat([first] + snaps, 0)
 
     def p_sample_loop(self, net, sched, x_in, generator=None,
                       continuous=False, clip_denoised=True,
                       noise_stream=None):
         """Full ancestral chain from the condition image ``x_in``
-        (b,c,h,w), or from a shape tuple (b,c,h,w) when unconditional.
+        (b,c,h,w), or from a shape tuple (b,c,h,w) when unconditional, or
+        (adm) from an ``SRCondition`` of low-resolution images and labels,
+        the state at the diffusion's ``image_size``.
 
         Returns the final image, or with ``continuous`` the process frames
         ((1+n_snap)*b, c, h, w): frame 0 is the condition (unconditional:
@@ -232,6 +290,7 @@ class GaussianDiffusion:
         from the clipped x0. Frames by ``_snapshot_count(S)`` over the loop
         position counting down S-1..0; ``noise_stream = (init, steps)``
         with steps (S,b,c,h,w) replaces the draws (none with eta = 0)."""
+        self._strided_mode()
         T = sched.num_timesteps
         tau = _strided_taus(T, n_steps)
         S = len(tau)
@@ -278,6 +337,7 @@ class GaussianDiffusion:
         SDE-DPM-Solver++(2M), fresh noise each step (use 1). The last step
         jumps to the x0 prediction, first order. Frames and
         ``noise_stream`` as ``ddim_sample_loop``."""
+        self._strided_mode()
         T = sched.num_timesteps
         tau = _strided_taus(T, n_steps)
         S = len(tau)
@@ -334,6 +394,12 @@ class GaussianDiffusion:
             if continuous and (S - 1 - i) % inter == 0:
                 snaps.append(img)
         return self._frames(condition_x, img0, snaps) if continuous else img
+
+    def _strided_mode(self):
+        if self.cond_mode == "adm":
+            raise NotImplementedError("the adm chain is the ancestral one "
+                                      "(p_sample_loop) over a respaced "
+                                      "schedule")
 
     def sample(self, net, sched, batch_size=1, generator=None,
                continuous=False):

@@ -2,7 +2,9 @@
 
 Counterpart of ``sr3_tpu/models/networks.py`` (``define_G``,
 ``count_params``; ``resolve_dtype`` lives in ``utils/runtime.py``).
-``model.which_model_G`` ('sr3' or 'ddpm') is the ``cond_mode`` of both.
+``model.which_model_G`` ('sr3' or 'ddpm') is the ``cond_mode`` of both;
+'adm' builds guided-diffusion's ADM super-resolution UNet
+(``models/adm_unet.py``) under a diffusion of ``cond_mode='adm'``.
 The UNet is built with a seeded init on the CPU, then moved to the device
 in ``torch.channels_last`` memory with float32 parameters. The init follows
 the JAX package's: with ``phase == "train"`` every Conv2d and Linear weight
@@ -22,6 +24,7 @@ import math
 import torch
 from torch import nn
 
+from sr3_tpu_torch.models.adm_unet import adm_from_opt
 from sr3_tpu_torch.models.diffusion import GaussianDiffusion
 from sr3_tpu_torch.models.unet import UNet
 from sr3_tpu_torch.utils.runtime import resolve_device, resolve_dtype
@@ -29,15 +32,16 @@ from sr3_tpu_torch.utils.runtime import resolve_device, resolve_dtype
 
 def define_G(opt, device=None, seed=0) -> GaussianDiffusion:
     model_opt = opt["model"]
-    cond_mode = model_opt["which_model_G"]  # 'sr3' | 'ddpm'
+    cond_mode = model_opt["which_model_G"]  # 'sr3' | 'ddpm' | 'adm'
     unet_opt = model_opt["unet"]
     diff_opt = model_opt["diffusion"]
     device = torch.device(device) if device is not None else resolve_device()
     norm_groups = unet_opt.get("norm_groups") or 32
+    dtype = resolve_dtype(model_opt.get("dtype"), device)
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        unet = UNet(
+        unet = adm_from_opt(model_opt, dtype) if cond_mode == "adm" else UNet(
             in_channel=unet_opt["in_channel"],
             out_channel=unet_opt["out_channel"],
             inner_channel=unet_opt["inner_channel"],
@@ -47,7 +51,7 @@ def define_G(opt, device=None, seed=0) -> GaussianDiffusion:
             res_blocks=unet_opt["res_blocks"],
             dropout=unet_opt.get("dropout", 0.0) or 0.0,
             image_size=diff_opt["image_size"],
-            dtype=resolve_dtype(model_opt.get("dtype"), device),
+            dtype=dtype,
             remat=bool(unet_opt.get("remat", False)),
             cond_mode=cond_mode,
         )

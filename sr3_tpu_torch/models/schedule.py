@@ -4,7 +4,15 @@ Counterpart of ``sr3_tpu/models/schedule.py``: every coefficient is computed
 on the host in float64 numpy and cast to float32 (the reference's numpy-f64
 to torch-f32 pipeline), then placed on the device as one tensor per buffer,
 under the reference's buffer names, plus ``sqrt_alphas_cumprod_prev`` of
-length T+1 (index 0 is gamma = 1).
+length T+1 (index 0 is gamma = 1), ``log_betas`` and ``timestep_map``.
+
+A schedule option ``timestep_respacing`` (guided-diffusion's
+``--timestep_respacing``, e.g. "250") keeps the steps ``space_timesteps``
+picks from the ``n_timestep`` betas and makes the betas of the kept steps,
+1 - abar_k / abar_prev, with their own tables, as guided-diffusion's
+``SpacedDiffusion``; ``timestep_map[k]`` is the original timestep of kept
+step k (``arange(T)`` without respacing), which a network conditioned on
+the integer timestep takes.
 """
 
 from __future__ import annotations
@@ -79,12 +87,36 @@ class Schedule:
     posterior_mean_coef1: torch.Tensor
     posterior_mean_coef2: torch.Tensor
     sqrt_alphas_cumprod_prev: torch.Tensor
+    log_betas: torch.Tensor
+    timestep_map: torch.Tensor  # int64: the original timestep of each step
     num_timesteps: int
+
+
+def space_timesteps(num_timesteps, section_counts):
+    """The sorted timesteps of ``num_timesteps`` that guided-diffusion's
+    ``space_timesteps`` keeps: ``section_counts`` is "N" or "N1,N2,..."
+    (equal sections, each spaced evenly with rounded fractional strides,
+    the stride added up as there)."""
+    counts = [int(x) for x in section_counts.split(",")]
+    size_per, extra = divmod(num_timesteps, len(counts))
+    start, steps = 0, []
+    for i, count in enumerate(counts):
+        size = size_per + (1 if i < extra else 0)
+        if size < count:
+            raise ValueError(f"cannot divide a section of {size} steps into "
+                             f"{count}")
+        stride = 1 if count <= 1 else (size - 1) / (count - 1)
+        cur = 0.0
+        for _ in range(count):
+            steps.append(start + round(cur))
+            cur += stride
+        start += size
+    return sorted(set(steps))
 
 
 def make_schedule(schedule_opt, device="cpu") -> Schedule:
     """Schedule on ``device`` for a config dict with schedule / n_timestep /
-    linear_start / linear_end (/ cosine_s)."""
+    linear_start / linear_end (/ cosine_s, / timestep_respacing)."""
     betas = make_beta_schedule(
         schedule=schedule_opt["schedule"],
         n_timestep=int(schedule_opt["n_timestep"]),
@@ -92,6 +124,12 @@ def make_schedule(schedule_opt, device="cpu") -> Schedule:
         linear_end=schedule_opt.get("linear_end", 2e-2),
         cosine_s=schedule_opt.get("cosine_s", 8e-3),
     )
+    kept = np.arange(betas.shape[0])
+    respacing = schedule_opt.get("timestep_respacing")
+    if respacing:
+        kept = np.asarray(space_timesteps(betas.shape[0], str(respacing)))
+        cum = np.cumprod(1.0 - betas, axis=0)[kept]
+        betas = 1.0 - cum / np.append(1.0, cum[:-1])
     alphas = 1.0 - betas
     cum = np.cumprod(alphas, axis=0)
     cum_prev = np.append(1.0, cum[:-1])
@@ -111,9 +149,11 @@ def make_schedule(schedule_opt, device="cpu") -> Schedule:
         "posterior_mean_coef2": (1.0 - cum_prev) * np.sqrt(alphas)
         / (1.0 - cum),
         "sqrt_alphas_cumprod_prev": np.sqrt(np.append(1.0, cum)),
+        "log_betas": np.log(betas),
     }
     return Schedule(
         **{k: torch.from_numpy(v.astype(np.float32)).to(device)
            for k, v in arrays.items()},
+        timestep_map=torch.from_numpy(kept.astype(np.int64)).to(device),
         num_timesteps=int(betas.shape[0]),
     )

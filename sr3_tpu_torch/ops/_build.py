@@ -49,9 +49,9 @@ _SIGNATURES = {
     "sr3_gn_stats_workspace_floats": ([_I] * 4, _L),
     # x, s1, s2, workspace, B, HW, C, dtype, stream
     "sr3_gn_stats": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    # x, pre_scale, pre_bias, gamma, beta, w, bias, res, y, workspace,
-    # tickets, B, H, W, Cin, Cout, G, eps, dtype, stream
-    "sr3_gn_silu_conv3x3": ([_P] * 11 + [_I] * 6 + [_F, _I, _P], _I),
+    # x, pre_scale, pre_bias, post_scale, post_shift, gamma, beta, w, bias,
+    # res, y, workspace, tickets, B, H, W, Cin, Cout, G, eps, dtype, stream
+    "sr3_gn_silu_conv3x3": ([_P] * 13 + [_I] * 6 + [_F, _I, _P], _I),
     # x, top, bottom, mult, add, w, bias, res, y, B, H, W, Cin, Cout,
     # dtype, stream
     "sr3_gn_silu_conv3x3_halo": ([_P] * 9 + [_I] * 6 + [_P], _I),

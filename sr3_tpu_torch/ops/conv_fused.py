@@ -29,6 +29,17 @@ the caller's per-(b, c) mult / add and the raw rows above and below the
 shard); ``gn_silu_conv3x3_halo_plain`` is its plain version, and its
 backward is autograd through that plain version (an ``ops.plain_backward``
 span).
+
+With ``post_scale`` / ``post_shift`` (B, Cin) the normalized map is scaled
+and shifted per (batch, channel) after the norm, SiLU(GroupNorm(x) * (1 +
+post_scale) + post_shift) -> conv3x3, the conditioning of guided-diffusion's
+scale-shift ResBlocks (``models/adm_unet.py``): the plain version computes
+it in float32 before the SiLU; the kernel folds it into the per-(batch,
+channel) multiply-add its statistics launch builds; under autograd the
+backward is autograd through the plain version, in an
+``ops.plain_backward`` span. K1's
+statistics launch takes up to 2048 input channels (the ADM's concatenated
+up-path inputs); its backward kernel, up to 1024.
 """
 
 
@@ -40,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from sr3_tpu_torch.ops import _build
-from sr3_tpu_torch.ops.groupnorm import (check_channels_last, f32_or_none,
+from sr3_tpu_torch.ops.groupnorm import (_group_stats, _grouped, _normalize,
+                                         check_channels_last, f32_or_none,
                                          gn_silu_act, gn_silu_bwd,
                                          group_norm_plain, space_stats,
                                          stats_workspace)
@@ -64,16 +76,39 @@ def bf16_tile_launches(reset=False):
     return dict(zip(BF16_TILES, counts))
 
 
+def _post_act(x, gn_weight, gn_bias, num_groups, eps, post_scale,
+              post_shift):
+    """SiLU(GroupNorm(x) * (1 + post_scale) + post_shift), all in float32,
+    cast to x's dtype; post_scale / post_shift (B,C) or None."""
+    xf = _grouped(x, num_groups)
+    mean, rstd = _group_stats(xf, eps)
+    z = _normalize(xf, gn_weight, gn_bias, mean, rstd, swish=False)
+    if post_scale is not None:
+        z = z * (1.0 + post_scale.float()[:, :, None, None])
+    if post_shift is not None:
+        z = z + post_shift.float()[:, :, None, None]
+    return (z * torch.sigmoid(z)).to(x.dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
 def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias, num_groups,
                           eps=1e-5, pre_scale=None, pre_bias=None,
-                          residual=None):
+                          residual=None, post_scale=None, post_shift=None):
     """x: (B,Cin,H,W); weight: (Cout,Cin,3,3); pre_scale/pre_bias: (B,Cin);
-    residual: (B,Cout,H,W). Returns (B,Cout,H,W) in x's dtype."""
+    residual: (B,Cout,H,W); post_scale/post_shift: (B,Cin), the scale and
+    shift of the normalized map, GroupNorm(x) * (1 + post_scale) +
+    post_shift, in float32 before the SiLU. Returns (B,Cout,H,W) in x's
+    dtype."""
     if pre_scale is not None:
         x = x * pre_scale[:, :, None, None].to(x.dtype)
     if pre_bias is not None:
         x = x + pre_bias[:, :, None, None].to(x.dtype)
-    xn = group_norm_plain(x, gn_weight, gn_bias, num_groups, eps, swish=True)
+    if post_scale is None and post_shift is None:
+        xn = group_norm_plain(x, gn_weight, gn_bias, num_groups, eps,
+                              swish=True)
+    else:
+        xn = _post_act(x, gn_weight, gn_bias, num_groups, eps, post_scale,
+                       post_shift)
     y = F.conv2d(xn, weight.to(x.dtype),
                  None if bias is None else bias.to(x.dtype), padding=1)
     if residual is not None:
@@ -82,9 +117,12 @@ def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias, num_groups,
 
 
 def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
-                    eps=1e-5, pre_scale=None, pre_bias=None, residual=None):
-    """GroupNorm+SiLU+conv3x3 (+ pre-affine, + residual): the plain version
-    on the CPU, kernel K1 on CUDA."""
+                    eps=1e-5, pre_scale=None, pre_bias=None, residual=None,
+                    post_scale=None, post_shift=None):
+    """GroupNorm+SiLU+conv3x3 (+ pre-affine, + the scale-shift after the
+    norm, + residual): the plain version on the CPU, kernel K1 on CUDA. With
+    ``post_scale`` / ``post_shift`` its backward is autograd through the
+    plain version (``_GnSiluConv3x3Post``)."""
     check_channels_last(x)
     b, cin, h, w = x.shape
     cout = weight.shape[0]
@@ -99,17 +137,23 @@ def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, num_groups,
             raise ValueError(f"residual must be {(b, cout, h, w)}, got "
                              f"{tuple(residual.shape)}")
     args = (x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual)
+    post = (post_scale, post_shift)
+    if post_scale is not None or post_shift is not None:
+        if _build.needs_grad(*args, *post):
+            return _GnSiluConv3x3Post.apply(*args, *post, num_groups, eps)
+        return _fwd(*args, num_groups, eps, *post)
     if _build.needs_grad(*args):
         return _GnSiluConv3x3.apply(*args, num_groups, eps)
     return _fwd(*args, num_groups, eps)
 
 
 def _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual,
-         num_groups, eps):
+         num_groups, eps, post_scale=None, post_shift=None):
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(
             x, gn_weight, gn_bias, weight, bias, num_groups, eps,
-            pre_scale=pre_scale, pre_bias=pre_bias, residual=residual)
+            pre_scale=pre_scale, pre_bias=pre_bias, residual=residual,
+            post_scale=post_scale, post_shift=post_shift)
     if x.device.type != "cuda":
         raise ValueError(f"gn_silu_conv3x3 runs on cpu or cuda, not {x.device}")
 
@@ -136,11 +180,13 @@ def _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias, residual,
     y = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     ptr = _build.ptr
+    qs = f32_or_none(post_scale, (b, cin), "post_scale")
+    qb = f32_or_none(post_shift, (b, cin), "post_shift")
     err = lib.sr3_gn_silu_conv3x3(
-        x.data_ptr(), ptr(ps), ptr(pb), gamma.data_ptr(), beta.data_ptr(),
-        wk.data_ptr(), ptr(cb), ptr(residual), y.data_ptr(), ws.data_ptr(),
-        tickets.data_ptr(), b, h, w, cin, cout, num_groups, float(eps),
-        _build.dtype_code(x), _build.stream_of(x),
+        x.data_ptr(), ptr(ps), ptr(pb), ptr(qs), ptr(qb), gamma.data_ptr(),
+        beta.data_ptr(), wk.data_ptr(), ptr(cb), ptr(residual),
+        y.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, h, w, cin, cout,
+        num_groups, float(eps), _build.dtype_code(x), _build.stream_of(x),
     )
     _build.check(err, "sr3_gn_silu_conv3x3")
     counter.n += 1
@@ -194,6 +240,44 @@ class _GnSiluConv3x3(torch.autograd.Function):
         grads = [t.to(s.dtype) if n and t is not None else None
                  for t, s, n in zip(grads, saved, need)]
         return (*grads, dres, None, None)
+
+
+class _GnSiluConv3x3Post(torch.autograd.Function):
+    """K1 with the scale-shift after the norm: the kernel forward; the
+    backward is autograd through ``gn_silu_conv3x3_plain`` recomputed from
+    the saved inputs, in an ``ops.plain_backward`` span (the residual's
+    gradient is the output gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias,
+                residual, post_scale, post_shift, num_groups, eps):
+        ctx.save_for_backward(x, gn_weight, gn_bias, weight, bias, pre_scale,
+                              pre_bias, post_scale, post_shift)
+        ctx.cfg = (num_groups, eps)
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        return _fwd(x, gn_weight, gn_bias, weight, bias, pre_scale, pre_bias,
+                    residual, num_groups, eps, post_scale, post_shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with span("ops.plain_backward", g, op="gn_silu_conv3x3_post"):
+            flags = need[:7] + need[8:10]
+            with torch.enable_grad():
+                leaves = [None if t is None else t.detach().requires_grad_(n)
+                          for t, n in zip(saved, flags)]
+                x, gw, gb, w, cb, ps, pb, qs, qb = leaves
+                y = gn_silu_conv3x3_plain(
+                    x, gw, gb, w, cb, *ctx.cfg, pre_scale=ps, pre_bias=pb,
+                    post_scale=qs, post_shift=qb)
+                wrt = [t for t in leaves if t is not None and t.requires_grad]
+                grads = iter(torch.autograd.grad(y, wrt, g.to(y.dtype))
+                             if wrt else ())
+            out = [next(grads) if t is not None and t.requires_grad else None
+                   for t in leaves]
+            dres = g.to(ctx.residual_dtype) if need[7] else None
+        return (*out[:7], dres, *out[7:], None, None)
 
 
 # ---------------------------------------------------- the halo entry (space)

@@ -78,7 +78,7 @@ def stats_workspace(lib, x, num_groups):
                                     _build.dtype_code(x))
     if n < 0:
         raise ValueError(f"the GroupNorm kernels do not take {c} channels in "
-                         f"{num_groups} groups at batch {b} (kGnMaxChannels, "
+                         f"{num_groups} groups at batch {b} (kGnStatsMaxChannels, "
                          f"csrc/common.cuh)")
     key = (x.device, _build.stream_of(x))
     tickets = _tickets.get(key)

@@ -7,7 +7,8 @@ the EMA; ``get_current_log``; ``finetune_norm``), checkpoints
 (``save_network`` / ``load_network`` with the reference's
 ``I{iter}_E{epoch}_{gen,opt}.pth`` names), the bf16 sampling copy
 (``_eval_params``), the sampler choice (``_chain_fn``: ancestral, DDIM or
-DPM-Solver++), ``test_batched`` / ``sample_batched``, and the
+DPM-Solver++), ``test_batched`` (with class labels for the adm network) /
+``sample_batched``, and the
 device-resident dataset (``load_device_dataset``,
 ``optimize_parameters_resident``). Parameters are float32; the UNet
 computes in its own dtype (bf16 on CUDA). The optimizer is
@@ -58,6 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sr3_tpu_torch.models.diffusion import SRCondition
 from sr3_tpu_torch.models.networks import count_params, define_G
 from sr3_tpu_torch.models.schedule import make_schedule
 from sr3_tpu_torch.parallel import sharding_rules as tp
@@ -434,13 +436,21 @@ class Trainer:
             out = out.permute(0, 2, 3, 1)
         return out.float().cpu().numpy()
 
-    def test_batched(self, xs, generators, continous=False):
+    def test_batched(self, xs, generators, continous=False, labels=None):
         """Conditional SR over a group of images with per-image generators.
 
-        xs: (G,h,w,c) numpy condition images. Returns numpy (G,h,w,c), or
-        (G,S,h,w,c) process frames when ``continous``."""
+        xs: (G,h,w,c) numpy condition images (for the adm network the
+        low-resolution images, with ``labels`` (G,) their class labels).
+        Returns numpy (G,h,w,c), or (G,S,h,w,c) process frames when
+        ``continous``."""
         x = torch.as_tensor(np.asarray(xs, np.float32)).permute(0, 3, 1, 2)
         x = x.to(self.device).contiguous(memory_format=torch.channels_last)
+        if self.diffusion.cond_mode == "adm":
+            y = None if labels is None else torch.as_tensor(
+                np.asarray(labels), dtype=torch.long, device=self.device)
+            x = SRCondition(x, y)
+        elif labels is not None:
+            raise ValueError("class labels are taken by the adm network only")
         return self._run_chain(x, generators, continous)
 
     def sample_batched(self, generators, continous=False):

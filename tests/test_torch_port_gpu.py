@@ -114,6 +114,59 @@ def test_k1_ragged_cin(gen):
     assert conv_fused.counter.n == n
 
 
+# K1 with the scale-shift after the norm (guided-diffusion's ResBlocks) at
+# the ADM 128->512 cell's shapes: an out_layers call at 512^2 and at 16^2,
+# an up-path in_layers call over 1536 and 1152 concatenated channels (K1's
+# statistics launch takes up to 2048), and the head (C_out 6). The worst
+# bf16 readings on the card were 4.8e-3 of max|plain| at the cell's shapes
+# and 5.6e-3 on the ragged one (limit 2e-2), float32 7.5e-7 (limit 1e-4).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,cout,h,post", [
+    (8, 192, 192, 512, True),
+    (8, 768, 768, 16, True),
+    (8, 1536, 768, 16, False),
+    (8, 1152, 384, 64, False),
+    (8, 192, 6, 512, False),
+    (2, 48, 40, 12, True),        # ragged C_out and tiles
+])
+def test_k1_scale_shift_matches_plain(gen, dtype, b, cin, cout, h, post):
+    if dtype == torch.float32 and h == 512:
+        b = 2  # the float32 plain version's intermediates at batch 8
+    args, _ = _k1_inputs(gen, dtype, b, cin, cout, h, h, False)
+    args = args[:5] + (32 if cin % 32 == 0 else 8,)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    kw = {}
+    if post:
+        kw = dict(post_scale=0.3 * r(b, cin), post_shift=0.5 * r(b, cin),
+                  residual=r(b, cout, h, h).to(dtype).contiguous(
+                      memory_format=CL))
+    n = conv_fused.counter.n
+    out = conv_fused.gn_silu_conv3x3(*args, **kw)
+    assert conv_fused.counter.n == n + 1
+    assert out.is_contiguous(memory_format=CL) and out.dtype == dtype
+    ref = conv_fused.gn_silu_conv3x3_plain(*args, **kw)
+    got = rel(out, ref)
+    print(f"k1 scale-shift {dtype} {(b, cin, cout, h, post)}: {got:.3e}")
+    assert got <= TOL[dtype]["k1"]
+
+
+def test_k1_scale_shift_leaves_the_pre_affine_route_alone(gen):
+    """A zero scale and shift give the kernel's own route's bits, and the
+    pre-affine route's output does not depend on a scale-shift call before
+    it."""
+    args, kw = _k1_inputs(gen, torch.bfloat16, 2, 128, 64, 64, 64, True)
+    first = conv_fused.gn_silu_conv3x3(*args, **kw)
+    zero = torch.zeros(2, 128, device="cuda")
+    conv_fused.gn_silu_conv3x3(*args, residual=kw["residual"],
+                               post_scale=zero + 0.5, post_shift=zero)
+    again = conv_fused.gn_silu_conv3x3(*args, **kw)
+    assert torch.equal(first, again)
+    plain = conv_fused.gn_silu_conv3x3(*args, residual=kw["residual"])
+    posted = conv_fused.gn_silu_conv3x3(*args, residual=kw["residual"],
+                                        post_scale=zero, post_shift=zero)
+    assert torch.equal(plain, posted)
+
+
 def _halo_inputs(gen, dtype, b, cin, cout, h, w, top, bottom):
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     row = lambda on: (r(b, cin, 1, w).to(dtype).contiguous(memory_format=CL)
@@ -426,6 +479,13 @@ def _function_case(gen, op, dtype):
         call = lambda f, t: f(*t[:5], 8, pre_bias=t[5], residual=t[6])
         return call, conv_fused.gn_silu_conv3x3, \
             conv_fused.gn_silu_conv3x3_plain, inputs
+    if op == "k1_post":
+        args, kw = _k1_inputs(gen, dtype, 2, 64, 64, 16, 16, True)
+        inputs = [*args[:5], 0.3 * r(2, 64), 0.5 * r(2, 64), kw["residual"]]
+        call = lambda f, t: f(*t[:5], 8, post_scale=t[5], post_shift=t[6],
+                              residual=t[7])
+        return call, conv_fused.gn_silu_conv3x3, \
+            conv_fused.gn_silu_conv3x3_plain, inputs
     if op == "k2":
         x = (3 * r(2, 96, 12, 12) + 1).to(dtype).contiguous(memory_format=CL)
         inputs = [x, 1 + 0.2 * r(96), 0.1 * r(96)]
@@ -437,7 +497,7 @@ def _function_case(gen, op, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("op", ["k1", "k2", "k4"])
+@pytest.mark.parametrize("op", ["k1", "k2", "k4", "k1_post"])
 def test_autograd_functions_match_plain_autograd(gen, op, dtype):
     call, wrapper, plain, inputs = _function_case(gen, op, dtype)
     grads = []
@@ -626,6 +686,63 @@ def test_unet_every_parameter_gets_a_gradient_on_cuda(gen, dtype):
     for name, p in net.named_parameters():
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0, name
+
+
+def _adm_opt(**unet):
+    import json
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs",
+                           "adm_128_512.json")) as f:
+        opt = json.load(f)["opt"]
+    opt["model"]["unet"].update(unet)
+    return opt
+
+
+def test_adm_forward_launches_k1_at_every_site_of_the_reference(gen):
+    """One bf16 forward of the 128->512 ADM at batch 1: K1 runs once at each
+    site of the benchmark reference's list (every ResBlock's out_layers with
+    the scale-shift, the in_layers of the non-resampling ones, the head) and
+    every out_layers takes K1's scale-shift route."""
+    from portbench.reference import adm as ref
+    from sr3_tpu_torch.models import adm_unet
+
+    opt = _adm_opt()
+    with torch.device("cuda"):
+        net = adm_unet.adm_from_opt(opt["model"], torch.bfloat16)
+    net = net.to(memory_format=CL).eval()
+    x = torch.randn(1, 3, 512, 512, device="cuda", generator=gen)
+    low = torch.rand(1, 3, 128, 128, device="cuda", generator=gen) * 2 - 1
+    k1, ss = conv_fused.counter.n, adm_unet.scale_shift_blocks.n
+    with torch.inference_mode():
+        out = net(x, torch.tensor([999], device="cuda"), low,
+                  torch.tensor([7], device="cuda"))
+    sites = ref.k1_sites(opt, 1)
+    assert conv_fused.counter.n - k1 == len(sites) == 75
+    assert adm_unet.scale_shift_blocks.n - ss == sum(s["post"]
+                                                     for s in sites) == 42
+    assert out.shape == (1, 6, 512, 512) and torch.isfinite(out).all()
+
+
+def test_adm_float32_forward_matches_the_cpu(gen):
+    """A small ADM in float32: the kernels' forward on the card against the
+    plain versions' on the CPU, 1e-4 of max|CPU|."""
+    from sr3_tpu_torch.models import adm_unet
+
+    opt = _adm_opt(inner_channel=64, channel_multiplier=[1, 2],
+                   attn_res=[16], res_blocks=1, num_head_channels=64)
+    opt["model"]["diffusion"]["image_size"] = 32
+    torch.manual_seed(0)
+    net = adm_unet.adm_from_opt(opt["model"], torch.float32)
+    net = net.to(memory_format=CL).eval()
+    x, low = torch.randn(2, 3, 32, 32), torch.rand(2, 3, 8, 8) * 2 - 1
+    t, y = torch.tensor([3, 500]), torch.tensor([1, 999])
+    with torch.inference_mode():
+        want = net(x, t, low, y)
+        net = net.cuda()
+        got = net(x.cuda(), t.cuda(), low.cuda(), y.cuda())
+    assert rel(got, want.cuda()) <= 1e-4
 
 
 def test_cuda_wrappers_raise_on_other_layouts(gen):

@@ -2,7 +2,8 @@
 (``portbench/metrics``: ``unet_device_ms.sample``,
 ``chain_device_ms.sample``, ``{forward,backward,optimizer}_device_ms.train``,
 ``plain_backward_pct.train``, ``fused_block_pct.train``,
-``kernel_backward_pct.train``).
+``kernel_backward_pct.train``; for the ADM cell ``attention_pct.sample``,
+``resample_pct.sample`` and ``scale_shift_fused_pct.sample``).
 
 Fed a registry with known device milliseconds and counts, each gives the
 value its docstring defines, and None where the registry, the spans or
@@ -18,7 +19,8 @@ from portbench import cells
 from portbench.tests import test_portbench_names as contract
 from sr3_tpu_torch.utils import profiler
 
-SAMPLE = ("sr3_16_128.ancestral_b128", "sr3_64_512.ancestral_b8")
+ADM = ("adm_128_512.ancestral250_b8",)
+SAMPLE = ("sr3_16_128.ancestral_b128", "sr3_64_512.ancestral_b8") + ADM
 TRAIN = ("sr3_16_128.train_b128", "sr3_64_512.train_b16")
 NEW = {
     "unet_device_ms.sample": ("program_span", "unet", SAMPLE),
@@ -29,6 +31,9 @@ NEW = {
     "plain_backward_pct.train": ("program_span", "kernels", TRAIN),
     "fused_block_pct.train": ("program_counter", "kernels", TRAIN),
     "kernel_backward_pct.train": ("program_span", "kernels", TRAIN),
+    "scale_shift_fused_pct.sample": ("program_counter", "kernels", ADM),
+    "attention_pct.sample": ("program_span", "unet", ADM),
+    "resample_pct.sample": ("program_span", "unet", ADM),
 }
 SPAN_READERS = sorted(n for n, v in NEW.items() if v[0] == "program_span")
 
@@ -53,6 +58,14 @@ CHAIN = [
     ("chain.step", None, 10.0), ("chain.eps", 0, 8.0),
     ("chain.step", None, 12.0), ("chain.eps", 2, 9.0),
 ]
+# two ADM steps: attention and resampling blocks inside the network's call
+ADM_CHAIN = [
+    ("chain.step", None, 10.0), ("chain.eps", 0, 8.0),
+    ("unet.attention", 1, 1.0), ("unet.resample", 1, 2.0),
+    ("unet.attention", 1, 0.5),
+    ("chain.step", None, 12.0), ("chain.eps", 5, 9.0),
+    ("unet.attention", 6, 1.5), ("unet.resample", 6, 2.5),
+]
 TRAINING = [
     ("trainer.step", None, 20.0),                                   # 0
     ("trainer.forward", 0, 3.0), ("trainer.backward", 0, 10.0),    # 1, 2
@@ -76,6 +89,8 @@ WANT = {
     "optimizer_device_ms.train": (TRAINING, 0.5),
     "plain_backward_pct.train": (TRAINING, 100.0 * 9.0 / 22.0),
     "kernel_backward_pct.train": (KERNEL_TRAINING, 100.0 * 9.0 / 22.0),
+    "attention_pct.sample": (ADM_CHAIN, 100.0 * 3.0 / 17.0),
+    "resample_pct.sample": (ADM_CHAIN, 100.0 * 4.5 / 17.0),
 }
 
 
@@ -112,6 +127,26 @@ def test_a_span_reader_gives_none_without_device_times(monkeypatch, name):
 def test_the_block_share_reads_the_counters(monkeypatch, counts, want):
     _feed(monkeypatch, counts=counts)
     got = cells.reader("fused_block_pct.train")({})
+    assert got == (None if want is None else pytest.approx(want))
+
+
+@pytest.mark.parametrize("counts, want", [
+    ({"block.scale_shift": 42, "block.scale_shift_split": 0,
+      "gn_silu_conv3x3": 75}, 100.0),
+    ({"block.scale_shift": 3, "block.scale_shift_split": 1,
+      "gn_silu_conv3x3": 2}, 75.0),
+    # the program counts no other route: every scale-shift block is K1's
+    ({"block.scale_shift": 42, "gn_silu_conv3x3": 75}, 100.0),
+    # no K1 launch (a CPU run), no ADM blocks, or no counters: no reading
+    ({"block.scale_shift": 42, "block.scale_shift_split": 0,
+      "gn_silu_conv3x3": 0}, None),
+    ({"block.scale_shift": 0, "block.scale_shift_split": 0,
+      "gn_silu_conv3x3": 5}, None),
+    ({"block.fused": 30, "block.split": 10, "gn_silu_conv3x3": 5}, None),
+])
+def test_the_scale_shift_share_reads_the_counters(monkeypatch, counts, want):
+    _feed(monkeypatch, counts=counts)
+    got = cells.reader("scale_shift_fused_pct.sample")({})
     assert got == (None if want is None else pytest.approx(want))
 
 

@@ -149,10 +149,10 @@ def main(names):
             ws = torch.empty(lib.sr3_gn_workspace_floats(b, h * h, c, groups,
                                                          1), device="cuda")
             fn = lambda: lib.sr3_gn_silu_conv3x3(
-                x.data_ptr(), ps.data_ptr(), pb.data_ptr(), gw.data_ptr(),
-                gb.data_ptr(), w.data_ptr(), None, None, y.data_ptr(),
-                ws.data_ptr(), tickets.data_ptr(), b, h, h, c, 64, groups,
-                1e-5, 1, st)
+                x.data_ptr(), ps.data_ptr(), pb.data_ptr(), None, None,
+                gw.data_ptr(), gb.data_ptr(), w.data_ptr(), None, None,
+                y.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, h, h, c,
+                64, groups, 1e-5, 1, st)
             if fn():
                 print(f"  K1 {b}x{c}x{h}x{h} {n}: launch error", flush=True)
                 continue
