@@ -13,8 +13,10 @@ The SR3 16->128 paths (configs/sr_sr3_16_128.json):
      2), in float32 and bfloat16 (each kernel's route by dtype: KERNELS),
      error relative to max|plain| (TOL); K1 also at every shape of the
      64->512 UNet (batch 2; both shape lists checked against the models'
-     Blocks) and at two of its serving-batch shapes, each bf16 check
-     labelled with the tile it launched; K2 at every site of both UNets
+     Blocks), at two of its serving-batch shapes, at one shape of every
+     bf16 class of the conv launch (K1_CLASS_CASES) and at K1_TIMED, each
+     bf16 check labelled with the class it launched; then "K1 classes":
+     every class of conv_fused.BF16_TILES was checked; K2 at every site of both UNets
      (K2_SITES, K2_SITES_512, checked against the models) at every batch
      the paths run it at (k2_batches), each check labelled with the cluster
      size it launched, a ragged map and a slice too large for a cluster's
@@ -200,15 +202,19 @@ The last drivers and configs (after phase 29):
      scale-shift after the norm, every one counted by block.scale_shift),
      a finite (8, 6, 512, 512) output; then K1's scale-shift route and its
      wide statistics launch timed at K1_ADM as phase 17 (ms, plain_ms,
-     bound_ms). Phase 3 checks K1 at K1_ADM against its plain version in
+     bound_ms; cuDNN's bare conv3x3 on the same map and weight as
+     library_ms, a yardstick the port never calls; the class launched).
+     Then "K1 class timing": K1 timed so at K1_TIMED, the SR3 serving
+     cells' class shapes. Phase 3 checks K1 at K1_ADM against its plain version in
      float32 and bf16 (the float32 512^2 case at batch 2), and K2 at
      K2_SITES_ADM at batch 8, each list checked against the reference.
 Every timed UNet step, train step and strided chain (phases 6, 9, 15,
 16, 18, 21, 24, 25, 39) also prints its MFU: the FLOPs utils/flops.py
 counts for it over its median ms, against 989 TFLOP/s.
-After phase 41 the bf16 K1 tiles, and K2's (dtype, cluster size,
+After phase 41 the bf16 K1 classes, and K2's (dtype, cluster size,
 residency), launched since phase 3 (the main paths and the timing) must
-all be ones that phase 3 checked, and the bf16 K4 classes launched since
+all be ones that phase 3 checked ("K1 classes" also needs every class of
+conv_fused.BF16_TILES checked), and the bf16 K4 classes launched since
 phase 17 ones that phases 3 and 11 checked.
 The JAX package's host modules in the port (phase 35 runs right after
 phase 5, as early as it can: late in a long process the profiler has kept
@@ -279,7 +285,8 @@ zeroed just before it; the parallel paths from rank 0; phase 36's 8-worker
 run and phase 37's steps as launches_16_128_train_files / _lmdb), max error
 and times
 (timings_sample_ddpm_128: phase 22; timings_128_1024: phase 29;
-timings_adm_128_512: phase 42), and
+timings_adm_128_512: phase 42; timings_k1_classes: "K1 class
+timing"), and
 last the line {"ok": true,
 "device": {...}}. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -393,6 +400,18 @@ K2_SITES_512 = [(256, 128, True), (512, 64, True), (512, 32, True),
 # the bf16 route takes 128 output channels a block, over 4 and 2 blocks of
 # them; phase 3 checks these too
 K1_SERVING_512 = [(8, 512, 512, 64), (8, 128, 256, 128)]
+# (b, Cin, Cout, H=W): one K1 call of each bf16 class of the conv launch
+# (conv_fused.BF16_TILES, in that order, on a 132-SM H100), so phase 3
+# checks every class against the plain version
+K1_CLASS_CASES = [(2, 128, 256, 128), (2, 192, 192, 128), (8, 128, 128, 64),
+                  (1, 128, 256, 64), (128, 512, 512, 8), (2, 512, 512, 8),
+                  (2, 64, 3, 32)]
+# (b, Cin, Cout, H=W) K1 timed at each serving class's cell shapes beside
+# its bound and cuDNN's bare conv (library_ms; the port never calls it):
+# SR3 16->128 at batch 128 (64^2, 32^2, 16^2), SR3 64->512 at batch 8
+# (256^2), FiLM and residual; the ADM's at K1_ADM (phase 42)
+K1_TIMED = [(128, 128, 128, 64), (128, 256, 256, 32), (128, 512, 512, 16),
+            (8, 128, 128, 256)]
 TRAIN_STEPS_512 = 3
 TIME_STEPS_512 = 10
 PROFILE_STEPS_512 = 2
@@ -498,8 +517,12 @@ PEAK_BYTES = 3.35e12
 # name: (source, the TPU kernel it replaces, route by input dtype)
 FMA = "float32 FMA"
 WGMMA = ("bf16 wgmma tensor cores (A by ldmatrix from registers, B by "
-         "shared-memory descriptor), float32 accumulate, cp.async weight "
-         "ring and halo")
+         "shared-memory descriptor), float32 accumulate; C_out > 8: one "
+         "persistent block per SM, a TMA producer warp (weight ring and raw "
+         "halo under mbarriers), three normalizer warps off the tensor "
+         "pipe, a class per (map width, C_out, items) "
+         "(conv_fused.BF16_TILES); C_out <= 8: cp.async weight ring and "
+         "halo")
 K4_WGMMA = ("bf16 wgmma tensor cores (S = Q K^T by shared-memory "
             "descriptors, P V with P from registers and V by a transposed "
             "descriptor), float32 accumulate; TMA loads of a K / V ring "
@@ -790,7 +813,7 @@ def kernel_phase(torch, errs):
                         f"{sorted(set(adm_k2_sites()))}")
     k1_cases = ([(BATCH_CHECK, *s) for s in K1_SHAPES]
                 + [(BATCH_CHECK_512, *s) for s in K1_SHAPES_512]
-                + K1_SERVING_512
+                + K1_SERVING_512 + K1_CLASS_CASES + K1_TIMED
                 + [(b, *s) for b in k1_batches(_load_opt(config=CONFIG_DDPM_128))
                    for s in K1_SHAPES_DDPM_128]
                 + [(b, *s) for b in k1_batches(_load_opt(config=CONFIG_1024))
@@ -994,17 +1017,15 @@ def _gn_bwd_launches_checked(torch, launches, config, steps):
                              f"{wrong}")
 
 
-@phase("K1 tiles")
-def k1_tile_phase(checked):
-    """Fail if a bf16 K1 tile launched since phase 3 went unchecked."""
+@phase("K1 classes")
+def k1_class_phase(checked, since):
+    """Every bf16 class of K1's conv launch checked against the plain
+    version (phase 3), and every one launched since the last reading among
+    them."""
     from sr3_tpu_torch.ops import conv_fused
 
-    taken = {t: n for t, n in conv_fused.bf16_tile_launches().items() if n}
-    print(f"  bf16 K1 launches by tile since phase 3: {taken}; checked in "
-          f"phase 3: {sorted(checked)}", flush=True)
-    if not taken or set(taken) - checked:
-        raise AssertionError(f"bf16 K1 tiles launched but not checked: "
-                             f"{sorted(set(taken) - checked)}")
+    _classes_checked("K1", conv_fused.bf16_tile_launches,
+                     conv_fused.BF16_TILES, checked, since)
 
 
 def launched_classes(launches, checked):
@@ -2377,20 +2398,55 @@ def adm_phase(torch):
     torch.cuda.empty_cache()
     timings = []
     for case in K1_ADM:
-        b, cin, cout, hw, post = case
         args, kw = _k1_adm_inputs(torch, g, torch.bfloat16, *case)
-        n = b * hw * hw
-        shape = (f"{b}x{cin}x{hw}x{hw}->{cout}"
-                 + (" +scale-shift+residual" if post else ""))
-        timings.append(_time_entry(
-            torch, "gn_silu_conv3x3", shape,
-            lambda: conv_fused.gn_silu_conv3x3(*args, **kw),
-            lambda: conv_fused.gn_silu_conv3x3_plain(*args, **kw), None,
-            2 * n * cin * cout * 9,
-            2 * (2 * n * cin + n * cout * (2 if post else 1)
-                 + cout * cin * 9)))
+        timings.append(_time_k1(torch, case[:4], args, kw,
+                                " +scale-shift+residual" if case[4] else ""))
         del args, kw
     return launches, timings
+
+
+def _time_k1(torch, case, args, kw, what):
+    """K1 at one (b, Cin, Cout, H=W) ``case`` timed by _time_entry beside
+    its plain version, cuDNN's bare conv3x3 on the same map and weight as
+    library_ms (the conv alone, without GroupNorm, SiLU, affine or
+    residual: a yardstick the port never calls) and its bound (bytes of x,
+    the weight, y and the residual where given; operations), labelled with
+    the bf16 class it launched."""
+    import torch.nn.functional as F
+
+    from sr3_tpu_torch.ops import conv_fused
+
+    b, cin, cout, hw = case
+    n = b * hw * hw
+    x, w, cb = args[0], args[3], args[4].to(args[0].dtype)
+    conv_fused.bf16_tile_launches(reset=True)
+    conv_fused.gn_silu_conv3x3(*args, **kw)
+    cls = ",".join(t for t, k in conv_fused.bf16_tile_launches().items() if k)
+    out = _time_entry(
+        torch, "gn_silu_conv3x3", f"{b}x{cin}x{hw}x{hw}->{cout}{what} {cls}",
+        lambda: conv_fused.gn_silu_conv3x3(*args, **kw),
+        lambda: conv_fused.gn_silu_conv3x3_plain(*args, **kw),
+        lambda: F.conv2d(x, w, cb, padding=1), 2 * n * cin * cout * 9,
+        2 * (n * cin + n * cout * (2 if "residual" in kw else 1)
+             + cout * cin * 9))
+    return {**out, "class": cls}
+
+
+@phase("K1 class timing")
+def k1_class_timing_phase(torch):
+    """K1 (bf16, FiLM and residual) at K1_TIMED, the SR3 serving cells'
+    class shapes, timed as phase 42's: ms, bound_ms, cuDNN's bare conv as
+    library_ms, the class launched."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    timings = []
+    for case in K1_TIMED:
+        b, cin, cout, hw = case
+        args, kw = _k1_inputs(torch, g, b, cin, cout, hw, torch.bfloat16,
+                              True)
+        timings.append(_time_k1(torch, case, args, kw, " +film+residual"))
+        del args, kw
+        torch.cuda.empty_cache()
+    return timings
 
 
 @phase("64->512 kernel timing")
@@ -4663,6 +4719,7 @@ def main():
         # the SR3 16->128 serving and training paths
         checked_tiles, checked_clusters, checked_k4, checked_bwd = \
             kernel_phase(torch, errs)
+        k1_class_phase(checked_tiles, "phase 3")
         k4_class_phase(checked_k4, "phase 3")
         bwd_class_phase(checked_bwd, "phase 3")
         gn_launch_phase(torch)
@@ -4700,6 +4757,7 @@ def main():
         serving_512 = serving_512_phase(torch)
         timings = kernel_timing_512_phase(torch)
         launches_adm, timings_adm = adm_phase(torch)
+        timings_k1 = k1_class_timing_phase(torch)
         k4_class_phase(checked_k4, "phase 11")
         # the rest of the sampling surface: ddpm, unconditional
         ddpm = ddpm_phase(torch)
@@ -4723,7 +4781,7 @@ def main():
         paths["16_128_sampler_eval"] = sampler_eval_phase(torch, workdir)
         torch.cuda.empty_cache()
         bench_phase(torch)
-        k1_tile_phase(checked_tiles)
+        k1_class_phase(checked_tiles, "phase 3")
         k2_cluster_phase(checked_clusters)
         k4_class_phase(checked_k4, "phase 17")
         bwd_class_phase(checked_bwd, "phase 22")
@@ -4782,6 +4840,7 @@ def main():
             entry["timings_128_1024"] = timings_1024[name]
         if name == "gn_silu_conv3x3":
             entry["timings_adm_128_512"] = timings_adm
+            entry["timings_k1_classes"] = timings_k1
         if name in times:
             entry["ms_16_128"], entry["plain_ms_16_128"] = times[name]
         kernels.append(entry)

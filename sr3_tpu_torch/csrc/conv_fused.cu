@@ -43,59 +43,80 @@
 // 64 output channels; per 16-channel chunk it stages the 10x10 halo and the
 // 9x64x16 weight slice. Ragged C_in is masked.
 //
-// Bfloat16 route (gn_silu_conv3x3_wgmma_kernel): implicit GEMM on wgmma.
-// Bound on the card: at 2x64x512^2->64 the function moves 201 MB (x,
-// residual and y in bf16; 0.060 ms at 3.35 TB/s) for 38.7 GFLOP (0.039 ms on
-// the bf16 tensor cores), so bytes bound it at C_in = 64 and operations at
-// C_in >= 128. The mma.sync kernel it replaces reached 7% of the tensor
-// rate: it restaged the whole 9x64 weight slice of every 16-channel chunk
-// for each 64 pixels (3x the bytes the function moves, through L2 and
-// shared memory), synchronized twice per 16 channels, and loaded fragments
-// with 32-bit shared loads. What this design does about it:
-//   * tiles: a block owns 128 output pixels (8 rows x 16 columns of one
-//     image; on maps of width <= 8, 8x8 pixels of two images, so the 8x8
-//     maps of the 16->128 UNet fill the tile) x BN output channels (8 for
-//     C_out = 3, on the one-image tile; 64; or on maps wider than 8 128
-//     where that still gives the card two blocks per SM): two consumer
-//     warpgroups of 64 pixels each, so each staged weight byte serves 128
-//     pixels, twice the old kernel's 64. sr3_gn_silu_conv3x3_tiles counts
-//     the launches of each tile, so a check can show which tiles a run
-//     took.
-//   * weights asynchronously, in a ring: each (tap, 64-channel chunk) stage
-//     of the (Cout, 3, 3, Cin) weight -- a BN x 64 K-major tile, 128 bytes a
-//     row, in the 128-byte swizzle a wgmma descriptor reads -- goes straight
-//     to shared memory by 16-byte cp.async into a ring of 4 stages, 2 stages
-//     ahead of use, one __syncthreads per stage.
-//   * the raw x halo of each 64-channel chunk (10 x 18 pixels, or 2 x 10 x
-//     10) arrives by cp.async with the chunk's first weight stage, into one
-//     of two buffers, rows padded to 72 bf16 so ldmatrix reads are free of
-//     bank conflicts; all 256 threads normalize, SiLU and round it in place
-//     once per element (each thread keeps one 8-channel group, so its
-//     scales load once per chunk and image), then 9 taps x 4 k-steps read
-//     it.
-//   * products: wgmma.mma_async m64nBNk16 (bf16 -> float32), A from
-//     registers -- ldmatrix of the shifted window of each tap, one row
-//     address per pixel, since a shifted 3x3 window is no layout a
-//     shared-memory descriptor can describe -- and B from the ring by
-//     descriptor. A stage's products run while the next stage's barrier,
-//     copies and (at a chunk's start) normalization proceed: the warpgroup
-//     waits for them only before it loads the next A.
-//   * epilogue: accumulators through shared memory (reusing the ring), bias
-//     and residual added in float32, each output rounded once and stored in
-//     16-byte stores where C_out % 8 == 0.
-// Shared memory: ring 4 x BN x 128 B + halo 2 x 180 (or 200) x 144 B + 1 KB
-// of alignment: 118 KB at BN = 128 (one block per SM), 85 KB at BN = 64 (two
-// per SM). The wrapper's rule C_in % 16 == 0 holds; a last chunk of fewer
-// than 64 channels is zero-filled.
+// Bfloat16 route: implicit GEMM on wgmma (M = output pixels, N = output
+// channels, K = 9 taps x C_in), A from registers -- ldmatrix of the
+// shifted window of each tap out of the normalized halo, one row address a
+// pixel, since a shifted 3x3 window is no layout a shared-memory descriptor
+// can describe -- and B, a BN x 64 K-major weight slice of one (tap,
+// 64-channel chunk) in the 128-byte swizzle, by descriptor.
 //
-// ptxas (sm_90a, CUDA 12.8, as chip_smoke.py's build phase prints it),
-// registers of gn_silu_conv3x3_wgmma_kernel<TW, NI, BN, false>: <16,1,128>
-// 164 (one block of 256 threads per SM), <16,1,64> 118 and <8,2,64> 127
-// (two per SM), <16,1,8> 107; no spills, and no wgmma serialized by ptxas.
-// The halo entry's reads are a separate instantiation (kHalo = true), so
-// the map's own entry compiles to the kernel it was before that entry
-// existed: a first version that decided the halo rows at run time in the
-// one kernel took 9-12% longer in K1's conv on the card.
+// What bounds it on the card: at 8x192x512^2->192 (the ADM's main shape)
+// 1.39 TFLOP, 1.407 ms on the bf16 tensor cores, against 2.4 GB of x, y
+// and the residual (0.72 ms at 3.35 TB/s): operations. At 64 channels
+// (8x64x512^2->64 + FiLM + residual) 0.155 ms of operations against 0.24
+// ms of bytes: bytes, and the halo's normalization (an exponential and a
+// division an input element) is as long as a chunk's products. The
+// previous kernel (one block a 128-pixel tile, cp.async, all 256 threads
+// normalizing between barriers) reached 18-27% of the bound at C_out > 64:
+// its tensor pipe drained at every stage (A loaded into the one register
+// set the products read, wgmma_wait<0> before the next ldmatrix, a
+// __syncthreads a stage), no products ran while the halo was normalized,
+// C_out = 192 ran as two N-tiles of 128 (a quarter of the products on zero
+// weights, each input normalized twice), and each tile's prologue and
+// epilogue overlapped nothing (one block an SM at BN 128).
+//
+// gn_silu_conv3x3_tma_kernel<TW, NI, BN> (every C_out > 8), what each part
+// does about that:
+//   * one persistent block an SM (384 threads, 161-230 KB of shared
+//     memory) walks items blockIdx.x, + gridDim.x, ...: item it is pixel
+//     tile it / n_tiles (NI images x 8 rows x TW columns = 128 pixels: 8 x
+//     16 of one image, or on maps of width <= 8, 8 x 8 of two) by N-tile it
+//     % n_tiles, so the N-tiles of one pixel tile run side by side on
+//     neighbouring SMs while its halo is in L2, and one item's epilogue
+//     runs while the producer and the normalizers go on with the next.
+//   * warp 0, one lane, issues every copy by TMA: each chunk's raw x halo
+//     (a 4-D box of 64 channels x (TW + 2) x 10 x NI of NHWC x, zero-filled
+//     outside the map and past C_in) into one of two buffers, one chunk
+//     ahead of the chunk's weight slices, which go into a ring of up to 8
+//     stages (w seen as (C_out, 9, C_in): a box of 64 channels x 1 tap x
+//     BN rows, zero past C_out and C_in), each under full / empty
+//     mbarriers.
+//   * warps 1-3 (96 threads, no wgmma) normalize chunk c + 1's raw halo
+//     into the other of two normalized buffers while the consumers run
+//     chunk c's nine taps: SiLU(x * mult + add) rounded to bf16, 0 on the
+//     padding after the activation (not SiLU(add)) and past C_in, and for
+//     the halo entry the rows above / below the map read from top / bottom
+//     (a run-time test here, off the products' path).
+//   * warpgroups 1 and 2 (64 pixels each) run the products: kASets A
+//     register sets (3 at BN <= 128, 2 at 192 and 256, where the
+//     accumulators take the registers) let the next taps' ldmatrix run
+//     while a tap's four m64nBNk16 products do (wgmma_wait<kASets - 1>);
+//     no __syncthreads in the loop: a weight stage goes back to the
+//     producer on its empty barrier once its products retire, a normalized
+//     buffer after its chunk's last tap's loads.
+//   * the N-tile follows C_out and the items (conv_plan): BN 256, 192, 128
+//     or 64 on wider maps, 128 or 64 on maps of width <= 8, whichever gives
+//     the least waves of items times (BN + kItemCost) -- one N-tile of 192
+//     for the ADM's 192 channels, 256 for SR3's 256 and 512 at 32^2 and
+//     16^2 at batch 128, smaller on small maps. sr3_gn_silu_conv3x3_tiles
+//     counts the launches of each class, sr3_gn_silu_conv3x3_plan reports
+//     the plan (mirrored by tests/torch_port_conv_plan.py).
+//   * epilogue from the fragments: bias and residual added in float32, each
+//     output rounded once, two channels a 4-byte store (the residual read
+//     while the last products run at BN <= 128); no atomics and no split
+//     over K, so two calls give the same bits.
+//   Registers (setmaxnreg): the producer warpgroup 88, the consumers 208.
+//
+// gn_silu_conv3x3_small_kernel (C_out <= 8, final_conv's 3 channels): the
+// previous design at one N-tile of 8 -- a block an 8 x 16 tile, cp.async
+// weight ring and halo, all 256 threads normalizing, two blocks an SM --
+// where the products are a sliver of the work and the normalization holds
+// the block either way; kHalo instantiations for the halo entry.
+//
+// ptxas (sm_90a, CUDA 12.8, chip_smoke.py's build phase): every
+// gn_silu_conv3x3_tma_kernel class 168 registers at launch (setmaxnreg 88
+// / 208), no spills, no wgmma serialized; gn_silu_conv3x3_small_kernel 112
+// (kHalo 114), no spills; the float32 kernel 64 (8 B spill; kHalo none).
 //
 // Tolerance against the plain version (sr3_tpu_torch/ops/conv_fused.py
 // `gn_silu_conv3x3_plain`, GroupNorm then F.conv2d with TF32 off): 1e-4 of
@@ -103,6 +124,8 @@
 // terms; 2e-2 in bfloat16 -- the plain version rounds a*x+b, the conv
 // output, the bias and the residual add to bf16 separately (2^-8 relative
 // each) where the kernel keeps them in float32 and rounds once.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -218,25 +241,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bfloat16: implicit GEMM on wgmma (M = pixels, N = output channels,
-// K = 9 taps x C_in), two consumer warpgroups of 64 pixels each. The tile
-// of one block is NI images x kWTH rows x TW columns = 128 pixels by BN
-// output channels (template instantiations per map and C_out: the header).
+// 8 floats from 16-byte aligned global memory.
+__device__ __forceinline__ void load8(float* v, const float* p) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
+// Eight bf16 channels SiLU(x * m + a), rounded to bf16 once, with image
+// img's scales of an NI-image tile; the SiLU takes the fast exponential and
+// division, far inside the bf16 rounding that follows.
+template <int NI>
+__device__ __forceinline__ uint4 gn_silu8(uint4 raw, const float (&m)[NI][8],
+                                          const float (&a)[NI][8], int img) {
+  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool second = NI > 1 && img > 0;
+    const float2 f = __bfloat1622float2(v[j]);
+    const float u0 = fmaf(f.x, second ? m[NI - 1][2 * j] : m[0][2 * j],
+                          second ? a[NI - 1][2 * j] : a[0][2 * j]);
+    const float u1 =
+        fmaf(f.y, second ? m[NI - 1][2 * j + 1] : m[0][2 * j + 1],
+             second ? a[NI - 1][2 * j + 1] : a[0][2 * j + 1]);
+    v[j] = __floats2bfloat162_rn(__fdividef(u0, 1.f + __expf(-u0)),
+                                 __fdividef(u1, 1.f + __expf(-u1)));
+  }
+  return raw;
+}
+
+// bfloat16, C_out <= 8 (final_conv's C_out = 3): implicit GEMM on wgmma
+// (M = pixels, N = output channels, K = 9 taps x C_in), a block of 8 x 16
+// pixels of one image by 8 output channels, two consumer warpgroups of 64
+// pixels each; the header's "small C_out" paragraph.
 using bf16 = __nv_bfloat16;
 
 constexpr int kWThreads = 256;          // two warpgroups
-constexpr int kWM = 128;                // output pixels per block
+constexpr int kWM = 128;                // output pixels per tile
 constexpr int kWTH = 8;                 // tile rows of each image
 constexpr int kWK = 64;                 // input channels per chunk (128 B)
 constexpr int kWStages = 4;             // weight ring: one (tap, chunk) each
 constexpr int kWAhead = kWStages - 2;   // stages in flight ahead of use
 constexpr int kHaloLd = kWK + 8;        // bf16 per halo pixel (144 B)
+constexpr int kSmallBN = 8;             // output channels of a small block
 
-template <int TW, int NI, int BN>
 struct WTile {
-  static_assert(NI * kWTH * TW == kWM, "a block owns 128 pixels");
+  static constexpr int TW = 16, BN = kSmallBN;
   static constexpr int kHW = TW + 2, kHH = kWTH + 2;  // halo width, height
-  static constexpr int kHaloPix = NI * kHH * kHW;
+  static constexpr int kHaloPix = kHH * kHW;
   static constexpr int kHaloElems = kHaloPix * kHaloLd;
   static constexpr int kStageElems = BN * kWK;
   static constexpr int kOutLd = BN + 8;  // floats per staged output pixel
@@ -247,9 +300,9 @@ struct WTile {
   static constexpr size_t kSmem = 1024 + (kMain > kOut ? kMain : kOut);
 };
 
-template <int TW, int NI, int BN, bool kHalo>
-__global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
-    gn_silu_conv3x3_wgmma_kernel(const bf16* __restrict__ x,
+template <bool kHalo>
+__global__ void __launch_bounds__(kWThreads, 2)
+    gn_silu_conv3x3_small_kernel(const bf16* __restrict__ x,
                                  const bf16* __restrict__ top,
                                  const bf16* __restrict__ bottom,
                                  const float* __restrict__ mult,
@@ -258,8 +311,9 @@ __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
                                  const float* __restrict__ bias,
                                  const bf16* __restrict__ res,
                                  bf16* __restrict__ y, int B, int H, int W,
-                                 int Cin, int Cout, int tiles_w, int vec) {
-  using T = WTile<TW, NI, BN>;
+                                 int Cin, int Cout, int tiles_w) {
+  using T = WTile;
+  constexpr int TW = T::TW, BN = T::BN;
   extern __shared__ uint8_t wg_smem[];
   uint8_t* base =
       wg_smem + ((1024 - (sr3::smem_u32(wg_smem) & 1023)) & 1023);
@@ -271,20 +325,18 @@ __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
   const int co0 = blockIdx.y * BN;
   const int ty0 = (blockIdx.x / tiles_w) * kWTH;
   const int tx0 = (blockIdx.x % tiles_w) * TW;
-  const int b0 = blockIdx.z * NI;
+  const int bb = blockIdx.z;
   const int nstages = 9 * ((Cin + kWK - 1) / kWK);
 
-  // batch element, row and column of halo pixel `pix`; false outside the
-  // batch or the map (the zero padding), but for kHalo true on the row
-  // above / below the map where top / bottom is given
-  auto halo_at = [&](int pix, int& bb, int& iy, int& ix) {
-    const int img = pix / (T::kHH * T::kHW), r = pix % (T::kHH * T::kHW);
-    bb = b0 + img;
-    iy = ty0 - 1 + r / T::kHW;
-    ix = tx0 - 1 + r % T::kHW;
-    const bool in = bb < B && iy >= 0 && iy < H && ix >= 0 && ix < W;
+  // row and column of halo pixel `pix`; false outside the map (the zero
+  // padding), but for kHalo true on the row above / below the map where
+  // top / bottom is given
+  auto halo_at = [&](int pix, int& iy, int& ix) {
+    iy = ty0 - 1 + pix / T::kHW;
+    ix = tx0 - 1 + pix % T::kHW;
+    const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
     if constexpr (kHalo) {
-      return in || (bb < B && ix >= 0 && ix < W &&
+      return in || (ix >= 0 && ix < W &&
                     ((iy == -1 && top) || (iy == H && bottom)));
     } else {
       return in;
@@ -309,8 +361,8 @@ __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
       bf16* hb = halo + (s / 9 % 2) * T::kHaloElems;
       for (int i = tid; i < T::kHaloPix * 8; i += kWThreads) {
         const int pix = i / 8, c = i % 8;
-        int bb, iy, ix;
-        const bool ok = halo_at(pix, bb, iy, ix) && c0 + 8 * c < Cin;
+        int iy, ix;
+        const bool ok = halo_at(pix, iy, ix) && c0 + 8 * c < Cin;
         const bf16* src;
         if constexpr (kHalo) {
           src = !ok ? x
@@ -328,60 +380,27 @@ __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
   };
 
   // The chunk's halo normalized and SiLU'd in place, once per element, and
-  // rounded to bf16; the padding and channels past C_in stay zero. A
-  // thread keeps one 8-channel group (kWThreads % 8 == 0), so its scales
-  // and shifts are loaded once per chunk and image; the SiLU takes the fast
-  // exponential and division, far inside the bf16 rounding that follows.
+  // rounded to bf16; the padding and channels past C_in stay zero.
   auto normalize = [&](int chunk) {
     const int c = tid % 8, ch = chunk * kWK + 8 * c;
     if (ch >= Cin) return;
-    float mv[NI][8], av[NI][8];
-#pragma unroll
-    for (int img = 0; img < NI; ++img) {
-      const int bb = min(b0 + img, B - 1);
-      const float4* m4 =
-          reinterpret_cast<const float4*>(mult + (size_t)bb * Cin + ch);
-      const float4* a4 =
-          reinterpret_cast<const float4*>(add + (size_t)bb * Cin + ch);
-      const float4 m0 = __ldg(m4), m1 = __ldg(m4 + 1);
-      const float4 a0 = __ldg(a4), a1 = __ldg(a4 + 1);
-      mv[img][0] = m0.x, mv[img][1] = m0.y, mv[img][2] = m0.z;
-      mv[img][3] = m0.w, mv[img][4] = m1.x, mv[img][5] = m1.y;
-      mv[img][6] = m1.z, mv[img][7] = m1.w;
-      av[img][0] = a0.x, av[img][1] = a0.y, av[img][2] = a0.z;
-      av[img][3] = a0.w, av[img][4] = a1.x, av[img][5] = a1.y;
-      av[img][6] = a1.z, av[img][7] = a1.w;
-    }
+    float mv[1][8], av[1][8];
+    load8(mv[0], mult + (size_t)bb * Cin + ch);
+    load8(av[0], add + (size_t)bb * Cin + ch);
     bf16* hb = halo + (chunk % 2) * T::kHaloElems + 8 * c;
     for (int pix = tid / 8; pix < T::kHaloPix; pix += kWThreads / 8) {
-      int bb, iy, ix;
-      if (!halo_at(pix, bb, iy, ix)) continue;
-      const bool second = NI > 1 && bb > b0;
+      int iy, ix;
+      if (!halo_at(pix, iy, ix)) continue;
       uint4* at = reinterpret_cast<uint4*>(hb + pix * kHaloLd);
-      uint4 raw = *at;
-      __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(v[j]);
-        const float u0 = fmaf(f.x, second ? mv[NI - 1][2 * j] : mv[0][2 * j],
-                              second ? av[NI - 1][2 * j] : av[0][2 * j]);
-        const float u1 =
-            fmaf(f.y, second ? mv[NI - 1][2 * j + 1] : mv[0][2 * j + 1],
-                 second ? av[NI - 1][2 * j + 1] : av[0][2 * j + 1]);
-        v[j] = __floats2bfloat162_rn(__fdividef(u0, 1.f + __expf(-u0)),
-                                     __fdividef(u1, 1.f + __expf(-u1)));
-      }
-      *at = raw;
+      *at = gn_silu8<1>(*at, mv, av, 0);
     }
   };
 
   // ldmatrix row address of this lane's A row: pixel p of the block,
   // channels 8 (lane / 16).. of a 16-deep k-step
   const int p = 64 * wg + 16 * (warp % 4) + lane % 16;
-  const int pq = p % (kWTH * TW);
   const int a_off =
-      (((p / (kWTH * TW)) * T::kHH + pq / TW) * T::kHW + pq % TW) * kHaloLd +
-      8 * (lane / 16);
+      ((p / TW) * T::kHW + p % TW) * kHaloLd + 8 * (lane / 16);
 
   float acc[BN / 2];
 #pragma unroll
@@ -424,61 +443,365 @@ __global__ void __launch_bounds__(kWThreads, BN == 128 ? 1 : 2)
   sr3::cp_async_wait<0>();
   __syncthreads();  // both warpgroups are done with the ring and the halo
 
-  // accumulators through shared memory, so that each output pixel's
-  // channels leave in 16-byte stores
+  // accumulators through shared memory, then bias and residual added in
+  // float32, each output rounded once
   float* out_s = reinterpret_cast<float*>(base);  // [kWM][kOutLd]
   {
     const int m0 = 64 * wg + 16 * (warp % 4) + lane / 4, n0 = 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out_s + (m0 + 8 * r) * T::kOutLd + n0) =
+          make_float2(acc[2 * r], acc[2 * r + 1]);
+  }
+  __syncthreads();
+  for (int m = tid; m < kWM; m += kWThreads) {
+    const int oy = ty0 + m / TW, ox = tx0 + m % TW;
+    if (oy >= H || ox >= W) continue;
+    const size_t at = (((size_t)bb * H + oy) * W + ox) * Cout + co0;
+    for (int c = 0; c < BN && co0 + c < Cout; ++c) {
+      float v = out_s[m * T::kOutLd + c] + (bias ? bias[co0 + c] : 0.f);
+      if (res) v += __bfloat162float(res[at + c]);
+      y[at + c] = __float2bfloat16(v);
+    }
+  }
+}
+
+// bfloat16, C_out > 8: the Hopper kernel (the header's design). Block
+// roles: warp 0 issues every TMA load (lane 0), warps 1-3 normalize (the
+// producer warpgroup, setmaxnreg kProducerRegs), warpgroups 1 and 2 run
+// the products (kConsumerRegs). One block per SM walks the items it, it +
+// gridDim.x, ...; item it is pixel tile it / n_tiles (NI images x kWTH
+// rows x TW columns = 128 pixels) by output channels (it % n_tiles) * BN..
+constexpr int kTThreads = 384;
+constexpr int kNormThreads = 96;      // warps 1-3
+constexpr int kProducerRegs = 88;     // 128 x 88 + 256 x 208 <= 65,536
+constexpr int kConsumerRegs = 208;
+constexpr int kConsumerWarps = 8;     // arrivals that empty a weight stage
+constexpr int kSmemMax = 232448;      // shared memory a block can use
+constexpr int kMaxStages = 8;
+constexpr int kBarBytes = 256;
+
+// Shared memory of a class: the weight ring (kStages x BN rows of 128
+// bytes, 128-byte swizzled, 1024-byte aligned), two raw halo buffers (the
+// TMA box, 128 bytes a pixel), two normalized halo buffers (kHaloLd bf16 a
+// pixel: ldmatrix rows free of bank conflicts), the barriers.
+template <int TW, int NI, int BN>
+struct TTile {
+  static_assert(NI * kWTH * TW == kWM, "a tile is 128 pixels");
+  static constexpr int kHW = TW + 2, kHH = kWTH + 2;  // halo width, height
+  static constexpr int kHaloPix = NI * kHH * kHW;
+  static constexpr int kRawBytes = kHaloPix * kWK * 2;
+  static constexpr int kNormBytes = kHaloPix * kHaloLd * 2;
+  static constexpr int kStageBytes = BN * kWK * 2;
+  static constexpr int kFit = (kSmemMax - 1024 - 2 * kRawBytes -
+                               2 * kNormBytes - kBarBytes) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static_assert(kStages >= 2, "two weight stages fit");
+  static_assert(8 * (2 * kStages + 8) <= kBarBytes, "barriers");
+  static_assert(kRawBytes % 128 == 0 && kNormBytes % 16 == 0, "alignment");
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStageBytes +
+                                  2 * kRawBytes + 2 * kNormBytes + kBarBytes;
+};
+
+struct Tile {
+  int b0, ty0, tx0, co0;  // first image, row, column, output channel
+};
+
+// A register sets of a consumer warpgroup: tap t + 1's ldmatrix, and with
+// three sets tap t + 2's too, overlap tap t's products. Three where the
+// products of a tap are short (BN <= 128), two where the accumulators take
+// the registers and the ring holds fewer stages (BN 192, 256).
+template <int BN>
+constexpr int kASets = BN <= 128 ? 3 : 2;
+
+// A consumer warpgroup's step k of the item whose chunks start at q0: A of
+// tap k % 9 of chunk q0 + k / 9 by ldmatrix into `a` while earlier steps'
+// products run (the chunk's normalized halo released after its last tap's
+// loads), then this step's four products on weight stage s; the stage of
+// the step kASets - 1 back is released once its products have retired.
+template <class T, int BN>
+__device__ __forceinline__ void conv_step(
+    float (&acc)[BN / 2], uint32_t (&a)[4][4], int q0, int k, int& s,
+    int lane, int a_off, const __nv_bfloat16* norm, uint32_t ring_addr,
+    uint64_t* w_full, uint64_t* w_empty, uint64_t* norm_full,
+    uint64_t* norm_empty) {
+  constexpr int kBack = kASets<BN> - 1;
+  const int q = q0 + k / 9, tap = k % 9, nslot = q % 2;
+  if (tap == 0) sr3::mbar_wait(norm_full + nslot, (q / 2) & 1);
+  const __nv_bfloat16* ap = norm + nslot * (T::kNormBytes / 2) + a_off +
+                            ((tap / 3) * T::kHW + tap % 3) * kHaloLd;
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<float2*>(out_s + (m0 + 8 * r) * T::kOutLd + 8 * j +
-                                   n0) =
-            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  for (int kk = 0; kk < 4; ++kk) sr3::ldmatrix_x4(a[kk], ap + 16 * kk);
+  if (tap == 8) {
+    __syncwarp();
+    if (lane == 0) sr3::mbar_arrive(norm_empty + nslot);
+  }
+  const int slot = s % T::kStages;
+  sr3::mbar_wait(w_full + slot, (s / T::kStages) & 1);
+  const uint64_t desc =
+      sr3::wgmma_desc_sw128(ring_addr + slot * T::kStageBytes);
+  sr3::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sr3::wgmma_rs<BN>(acc, a[kk], desc + ((32 * kk) >> 4));
+  sr3::wgmma_commit();
+  sr3::wgmma_wait<kBack>();
+  if (k >= kBack) {
+    __syncwarp();
+    if (lane == 0) sr3::mbar_arrive(w_empty + (s - kBack) % T::kStages);
+  }
+  ++s;
+}
+
+template <int TW, int NI, int BN>
+__global__ void __launch_bounds__(kTThreads, 1)
+    gn_silu_conv3x3_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                               const __grid_constant__ CUtensorMap wmap,
+                               const bf16* __restrict__ top,
+                               const bf16* __restrict__ bottom,
+                               const float* __restrict__ mult,
+                               const float* __restrict__ add,
+                               const float* __restrict__ bias,
+                               const bf16* __restrict__ res,
+                               bf16* __restrict__ y, int B, int H, int W,
+                               int Cin, int Cout, int tiles_w, int tiles_hw,
+                               int n_tiles, int items, int vec) {
+  using T = TTile<TW, NI, BN>;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* base =
+      tc_smem + ((1024 - (sr3::smem_u32(tc_smem) & 1023)) & 1023);
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  bf16* raw = reinterpret_cast<bf16*>(base + T::kStages * T::kStageBytes);
+  bf16* norm = raw + T::kRawBytes;  // two raw buffers of kRawBytes / 2
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(norm) + 2 * T::kNormBytes);
+  uint64_t* w_empty = w_full + T::kStages;
+  uint64_t* raw_full = w_empty + T::kStages;
+  uint64_t* raw_empty = raw_full + 2;
+  uint64_t* norm_full = raw_empty + 2;
+  uint64_t* norm_empty = norm_full + 2;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nch = (Cin + kWK - 1) / kWK;
+  // this block's items and chunks: chunk q is chunk q % nch of its item
+  // q / nch, in the order every role walks them
+  const int mine = (int)blockIdx.x < items
+                       ? (items - blockIdx.x + gridDim.x - 1) / gridDim.x
+                       : 0;
+  const int nq = mine * nch;
+  auto tile_of = [&](int q) {
+    const int it = blockIdx.x + (q / nch) * gridDim.x;
+    const int pt = it / n_tiles, r = pt % tiles_hw;
+    return Tile{(pt / tiles_hw) * NI, (r / tiles_w) * kWTH,
+                (r % tiles_w) * TW, (it % n_tiles) * BN};
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      sr3::mbar_init(w_full + s, 1);
+      sr3::mbar_init(w_empty + s, kConsumerWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      sr3::mbar_init(raw_full + i, 1);
+      sr3::mbar_init(raw_empty + i, kNormThreads);
+      sr3::mbar_init(norm_full + i, kNormThreads);
+      sr3::mbar_init(norm_empty + i, kConsumerWarps);
+    }
+    sr3::mbar_init_fence();
   }
   __syncthreads();
 
-  // bias and residual added in float32, each output rounded once
-  for (int i = tid; i < kWM * (BN / 8); i += kWThreads) {
-    const int m = i / (BN / 8), c = 8 * (i % (BN / 8));
-    const int mq = m % (kWTH * TW);
-    const int bb = b0 + m / (kWTH * TW), oy = ty0 + mq / TW,
-              ox = tx0 + mq % TW, o = co0 + c;
-    if (bb >= B || oy >= H || ox >= W || o >= Cout) continue;
-    const size_t at = (((size_t)bb * H + oy) * W + ox) * Cout + o;
-    const float* src = out_s + m * T::kOutLd + c;
-    if (vec) {  // C_out % 8 == 0, y and res 16-byte aligned
-      float v[8];
-      const float4 lo = *reinterpret_cast<const float4*>(src);
-      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-      v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
-      v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-      if (bias) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] += bias[o + j];
-      }
-      if (res) {
-        uint4 r = *reinterpret_cast<const uint4*>(res + at);
-        const __nv_bfloat162* rv = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(rv[j]);
-          v[2 * j] += f.x;
-          v[2 * j + 1] += f.y;
+  // one if / else for the roles, which never meet again (setmaxnreg)
+  if (warp < 4) {
+    sr3::setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0) {
+      // producer: chunk q's raw halo one chunk ahead of its weights, so
+      // the normalizers can start it while the consumers run chunk q - 1
+      if (lane != 0 || nq == 0) return;
+      sr3::tma_prefetch_map(&xmap);
+      sr3::tma_prefetch_map(&wmap);
+      auto load_raw = [&](int q) {
+        const Tile t = tile_of(q);
+        const int slot = q % 2;
+        sr3::mbar_wait(raw_empty + slot, ((q / 2) & 1) ^ 1);
+        sr3::mbar_expect_tx(raw_full + slot, T::kRawBytes);
+        sr3::tma_load_4d(raw + slot * (T::kRawBytes / 2), &xmap,
+                         raw_full + slot, (q % nch) * kWK, t.tx0 - 1,
+                         t.ty0 - 1, t.b0);
+      };
+      load_raw(0);
+      int s = 0;
+      for (int q = 0; q < nq; ++q) {
+        if (q + 1 < nq) load_raw(q + 1);
+        const int co0 = tile_of(q).co0, c0 = (q % nch) * kWK;
+        for (int tap = 0; tap < 9; ++tap, ++s) {
+          const int slot = s % T::kStages;
+          sr3::mbar_wait(w_empty + slot, ((s / T::kStages) & 1) ^ 1);
+          sr3::mbar_expect_tx(w_full + slot, T::kStageBytes);
+          sr3::tma_load_3d(ring + slot * (T::kStageBytes / 2), &wmap,
+                           w_full + slot, c0, tap, co0);
         }
       }
-      uint4 out;
-      uint32_t* ov = reinterpret_cast<uint32_t*>(&out);
+      return;
+    }
+    // normalizers: chunk q's raw halo -> SiLU(x * mult + add) in bf16, in
+    // the other normalized buffer than the consumers read; zero on the
+    // padding (the map's, and past C_in and the batch), the halo entry's
+    // rows above / below the map from top / bottom
+    const int nt = tid - 32, cg = nt % 8, pl = nt / 8;
+    for (int q = 0; q < nq; ++q) {
+      const Tile t = tile_of(q);
+      const int ch = (q % nch) * kWK + 8 * cg;
+      const bool live = ch < Cin;
+      float mv[NI][8], av[NI][8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ov[j] = sr3::pack_bf16(v[2 * j], v[2 * j + 1]);
-      *reinterpret_cast<uint4*>(y + at) = out;
-    } else {
-      for (int j = 0; j < 8 && o + j < Cout; ++j) {
-        float v = src[j] + (bias ? bias[o + j] : 0.f);
-        if (res) v += __bfloat162float(res[at + j]);
-        y[at + j] = __float2bfloat16(v);
+      for (int img = 0; img < NI; ++img) {
+        const size_t at = (size_t)min(t.b0 + img, B - 1) * Cin + ch;
+        if (live) {
+          load8(mv[img], mult + at);
+          load8(av[img], add + at);
+        }
+      }
+      const int slot = q % 2;
+      const uint32_t ph = (q / 2) & 1;
+      sr3::mbar_wait(raw_full + slot, ph);
+      sr3::mbar_wait(norm_empty + slot, ph ^ 1);
+      const bf16* rb = raw + slot * (T::kRawBytes / 2) + 8 * cg;
+      bf16* nb = norm + slot * (T::kNormBytes / 2) + 8 * cg;
+      for (int pix = pl; pix < T::kHaloPix; pix += kNormThreads / 8) {
+        const int img = pix / (T::kHH * T::kHW), r = pix % (T::kHH * T::kHW);
+        const int bb = t.b0 + img, iy = t.ty0 - 1 + r / T::kHW,
+                  ix = t.tx0 - 1 + r % T::kHW;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (live && bb < B && ix >= 0 && ix < W) {
+          const bf16* row = nullptr;
+          if (iy >= 0 && iy < H) {
+            v = gn_silu8<NI>(*reinterpret_cast<const uint4*>(rb + pix * kWK),
+                             mv, av, img);
+          } else if (iy == -1 && top) {
+            row = top;
+          } else if (iy == H && bottom) {
+            row = bottom;
+          }
+          if (row)
+            v = gn_silu8<NI>(__ldg(reinterpret_cast<const uint4*>(
+                                 row + ((size_t)bb * W + ix) * Cin + ch)),
+                             mv, av, img);
+        }
+        *reinterpret_cast<uint4*>(nb + pix * kHaloLd) = v;
+      }
+      sr3::mbar_arrive(raw_empty + slot);
+      sr3::mbar_arrive(norm_full + slot);
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns pixels 64 cw.. of each tile
+  sr3::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = warp / 4 - 1;
+  // ldmatrix row address of this lane's A row: pixel p of the tile,
+  // channels 8 (lane / 16).. of a 16-deep k-step
+  const int p = 64 * cw + 16 * (warp % 4) + lane % 16;
+  const int pq = p % (kWTH * TW);
+  const int a_off =
+      (((p / (kWTH * TW)) * T::kHH + pq / TW) * T::kHW + pq % TW) * kHaloLd +
+      8 * (lane / 16);
+  const uint32_t ring_addr = sr3::smem_u32(ring);
+  const int nk = 9 * nch;  // (chunk, tap) steps of an item
+  float acc[BN / 2];
+  constexpr int kA = kASets<BN>;
+  uint32_t a[kA][4][4];
+  int s = 0;  // weight stages consumed
+
+  for (int i = 0; i < mine; ++i) {
+    const int q0 = i * nch;
+    const Tile t = tile_of(q0);
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+    int k = 0;
+    for (; k + kA <= nk; k += kA) {
+#pragma unroll
+      for (int u = 0; u < kA; ++u)
+        conv_step<T, BN>(acc, a[u], q0, k + u, s, lane, a_off, norm,
+                         ring_addr, w_full, w_empty, norm_full, norm_empty);
+    }
+#pragma unroll
+    for (int u = 0; u < kA - 1; ++u)
+      if (k + u < nk)
+        conv_step<T, BN>(acc, a[u], q0, k + u, s, lane, a_off, norm,
+                         ring_addr, w_full, w_empty, norm_full, norm_empty);
+    // BN <= 128: the residual read while the last products run
+    const int gid = lane / 4, tig = lane % 4;
+    constexpr bool kEarly = BN <= 128;
+    uint32_t rv[kEarly ? 2 : 1][kEarly ? BN / 8 : 1];
+    if constexpr (kEarly) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = 64 * cw + 16 * (warp % 4) + gid + 8 * r;
+        const int mq = m % (kWTH * TW);
+        const int bb = t.b0 + m / (kWTH * TW), oy = t.ty0 + mq / TW,
+                  ox = t.tx0 + mq % TW;
+        const bool in = res && vec && bb < B && oy < H && ox < W;
+        const size_t at = (((size_t)bb * H + oy) * W + ox) * Cout;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int o = t.co0 + 8 * j + 2 * tig;
+          rv[r][j] = in && o < Cout
+                         ? __ldg(reinterpret_cast<const unsigned int*>(
+                               res + at + o))
+                         : 0u;
+        }
+      }
+    }
+    sr3::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) sr3::fence_operand(acc[j]);
+    __syncwarp();
+    if (lane == 0) {
+      for (int b = 1; b <= kA - 1 && b <= nk; ++b)
+        sr3::mbar_arrive(w_empty + (s - b) % T::kStages);
+    }
+
+    // epilogue from the fragments while the producer and the normalizers
+    // go on with the next item: bias and residual added in float32, each
+    // output rounded once; two neighbouring channels a store
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = 64 * cw + 16 * (warp % 4) + gid + 8 * r;
+      const int mq = m % (kWTH * TW);
+      const int bb = t.b0 + m / (kWTH * TW), oy = t.ty0 + mq / TW,
+                ox = t.tx0 + mq % TW;
+      if (bb >= B || oy >= H || ox >= W) continue;
+      const size_t at = (((size_t)bb * H + oy) * W + ox) * Cout;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int o = t.co0 + 8 * j + 2 * tig;
+        if (o >= Cout) continue;
+        float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
+        if (vec) {  // C_out even, y and res 4-byte aligned
+          if (bias) v0 += bias[o], v1 += bias[o + 1];
+          if (res) {
+            uint32_t raw2;
+            if constexpr (kEarly) {
+              raw2 = rv[r][j];
+            } else {
+              raw2 = __ldg(reinterpret_cast<const unsigned int*>(res + at + o));
+            }
+            const float2 f = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&raw2));
+            v0 += f.x, v1 += f.y;
+          }
+          *reinterpret_cast<uint32_t*>(y + at + o) = sr3::pack_bf16(v0, v1);
+        } else {
+          if (bias) v0 += bias[o];
+          if (res) v0 += __bfloat162float(res[at + o]);
+          y[at + o] = __float2bfloat16(v0);
+          if (o + 1 < Cout) {
+            if (bias) v1 += bias[o + 1];
+            if (res) v1 += __bfloat162float(res[at + o + 1]);
+            y[at + o + 1] = __float2bfloat16(v1);
+          }
+        }
       }
     }
   }
@@ -491,59 +814,153 @@ struct ConvArgs {
   const float* bias;
   const bf16* res;
   bf16* y;
-  int B, H, W, Cin, Cout, vec;
+  int B, H, W, Cin, Cout;
 };
 
-// Launches of each bfloat16 tile since the last reset, by tile index (the
-// order of sr3_gn_silu_conv3x3_tiles).
-std::atomic<long long> g_tile_launches[4];
+// The bfloat16 classes <TW, NI, BN> in the order sr3_gn_silu_conv3x3_tiles
+// counts their launches: the Hopper kernel's, then the small C_out one.
+constexpr int kClasses = 7;
+constexpr int kClassTW[kClasses] = {16, 16, 16, 16, 8, 8, 16};
+constexpr int kClassNI[kClasses] = {1, 1, 1, 1, 2, 2, 1};
+constexpr int kClassBN[kClasses] = {256, 192, 128, 64, 128, 64, 8};
+constexpr int kSmallClass = kClasses - 1;
+static_assert(kClassBN[kSmallClass] == kSmallBN, "the small class");
+// An item's cost beyond its BN output channels, in output channels: the
+// A loads, the pipeline's fill and the epilogue that do not shrink with BN
+constexpr int kItemCost = 32;
 
-template <int TW, int NI, int BN, bool kHalo>
-cudaError_t launch_wgmma_as(const ConvArgs& a, int tile, cudaStream_t st) {
-  using T = WTile<TW, NI, BN>;
+struct ConvPlan {
+  int cls, tiles_h, tiles_w, ptiles, n_tiles, items, grid;
+};
+
+ConvPlan plan_as(int cls, int B, int H, int W, int Cout, int sms) {
+  ConvPlan p{};
+  p.cls = cls;
+  p.tiles_h = (H + kWTH - 1) / kWTH;
+  p.tiles_w = (W + kClassTW[cls] - 1) / kClassTW[cls];
+  const long long ptiles = (long long)((B + kClassNI[cls] - 1) /
+                                       kClassNI[cls]) * p.tiles_h * p.tiles_w;
+  p.n_tiles = (Cout + kClassBN[cls] - 1) / kClassBN[cls];
+  const long long items = ptiles * p.n_tiles;
+  p.ptiles = ptiles > INT_MAX ? -1 : (int)ptiles;
+  p.items = items > INT_MAX ? -1 : (int)items;
+  p.grid = cls == kSmallClass || items < sms ? p.items : sms;
+  return p;
+}
+
+// C_out <= 8: the small class. Else the Hopper kernel: on maps of width
+// <= 8 tiles of two images (an 8x8 map fills the 128 pixels), BN 128 or 64;
+// on wider maps one image a tile, BN 256, 192, 128 or 64: the class whose
+// waves of items (ceil(items / SMs)) times (BN + kItemCost) are least, the
+// larger BN on a tie -- one N-tile for 192 channels, 256 where the items
+// still fill the card, smaller on small maps.
+ConvPlan conv_plan(int B, int H, int W, int Cout, int sms) {
+  if (Cout <= kSmallBN) return plan_as(kSmallClass, B, H, W, Cout, sms);
+  const int first = W <= 8 ? 4 : 0, last = W <= 8 ? 6 : 4;
+  ConvPlan best{};
+  long long least = -1;
+  for (int cls = first; cls < last; ++cls) {
+    const ConvPlan p = plan_as(cls, B, H, W, Cout, sms);
+    const long long cost =
+        ((long long)p.items + sms - 1) / sms * (kClassBN[cls] + kItemCost);
+    if (least < 0 || cost < least) least = cost, best = p;
+  }
+  return best;
+}
+
+// Launches of each bfloat16 class since the last reset, by class index.
+std::atomic<long long> g_tile_launches[kClasses];
+
+// x (B, H, W, Cin) as a 4-D map read in boxes of 64 channels x (TW + 2)
+// columns x (kWTH + 2) rows x NI images, dense (no swizzle); w (Cout, 9,
+// Cin) as a 3-D map read in boxes of 64 channels x 1 tap x BN rows,
+// 128-byte swizzled. Coordinates outside either tensor read zeros.
+bool encode_conv_maps(CUtensorMap* xmap, CUtensorMap* wmap,
+                      const ConvArgs& a, int TW, int NI, int BN) {
+  const sr3::EncodeTiled encode = sr3::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t xdims[4] = {(cuuint64_t)a.Cin, (cuuint64_t)a.W,
+                               (cuuint64_t)a.H, (cuuint64_t)a.B};
+  const cuuint64_t xstrides[3] = {a.Cin * e, (cuuint64_t)a.W * a.Cin * e,
+                                  (cuuint64_t)a.H * a.W * a.Cin * e};
+  const cuuint32_t xbox[4] = {kWK, (cuuint32_t)TW + 2, kWTH + 2,
+                              (cuuint32_t)NI};
+  const cuuint64_t wdims[3] = {(cuuint64_t)a.Cin, 9, (cuuint64_t)a.Cout};
+  const cuuint64_t wstrides[2] = {a.Cin * e, 9 * a.Cin * e};
+  const cuuint32_t wbox[3] = {kWK, 1, (cuuint32_t)BN};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<bf16*>(a.x), xdims, xstrides, xbox, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS &&
+         encode(wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<bf16*>(a.w), wdims, wstrides, wbox, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int TW, int NI, int BN>
+cudaError_t launch_tma(const ConvArgs& a, const ConvPlan& p,
+                       cudaStream_t st) {
+  using T = TTile<TW, NI, BN>;
   static sr3::SmemLimit limit;
-  const auto kernel = gn_silu_conv3x3_wgmma_kernel<TW, NI, BN, kHalo>;
+  const auto kernel = gn_silu_conv3x3_tma_kernel<TW, NI, BN>;
   cudaError_t err =
       sr3::raise_smem_limit(limit, (const void*)kernel, T::kSmem);
   if (err != cudaSuccess) return err;
-  const int tiles_w = (a.W + TW - 1) / TW;
-  const dim3 grid(((a.H + kWTH - 1) / kWTH) * tiles_w, (a.Cout + BN - 1) / BN,
-                  (a.B + NI - 1) / NI);
-  kernel<<<grid, kWThreads, T::kSmem, st>>>(a.x, a.top, a.bottom, a.mult,
-                                            a.add, a.w, a.bias,
-                                            a.res, a.y, a.B, a.H, a.W, a.Cin,
-                                            a.Cout, tiles_w, a.vec);
-  err = cudaGetLastError();
-  if (err == cudaSuccess)
-    g_tile_launches[tile].fetch_add(1, std::memory_order_relaxed);
-  return err;
+  CUtensorMap xmap, wmap;
+  if (!encode_conv_maps(&xmap, &wmap, a, TW, NI, BN))
+    return cudaErrorInvalidValue;
+  const int vec = a.Cout % 2 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(a.y) |
+                    reinterpret_cast<uintptr_t>(a.res)) % 4) == 0;
+  kernel<<<p.grid, kTThreads, T::kSmem, st>>>(
+      xmap, wmap, a.top, a.bottom, a.mult, a.add, a.bias, a.res, a.y, a.B,
+      a.H, a.W, a.Cin, a.Cout, p.tiles_w, p.tiles_h * p.tiles_w, p.n_tiles,
+      p.items, vec);
+  return cudaGetLastError();
 }
 
-// The halo entry's instantiation when it is given a halo row, else the
-// map's own.
-template <int TW, int NI, int BN>
-cudaError_t launch_wgmma(const ConvArgs& a, int tile, cudaStream_t st) {
-  return a.top || a.bottom ? launch_wgmma_as<TW, NI, BN, true>(a, tile, st)
-                           : launch_wgmma_as<TW, NI, BN, false>(a, tile, st);
-}
-
-// Tiles of 8 x 16 pixels of one image, or on maps of width <= 8 tiles of
-// 8 x 8 pixels of two images, so an 8x8 map fills the 128 pixels. Output
-// channels per block: 8 for final_conv's C_out = 3 (at any width); else 64,
-// or 128 on maps wider than 8 where C_out > 64 and 128 still gives the card
-// two blocks per SM (on maps of width <= 8 that would take a batch of 131 or
-// more).
-cudaError_t launch_bf16(const ConvArgs& a, cudaStream_t st) {
-  if (a.Cout <= 8) return launch_wgmma<16, 1, 8>(a, 2, st);
-  if (a.W <= 8) return launch_wgmma<8, 2, 64>(a, 3, st);
-  int sms = 0;
-  const cudaError_t err = sr3::sm_count(&sms);
+template <bool kHalo>
+cudaError_t launch_small_as(const ConvArgs& a, const ConvPlan& p,
+                            cudaStream_t st) {
+  static sr3::SmemLimit limit;
+  const auto kernel = gn_silu_conv3x3_small_kernel<kHalo>;
+  cudaError_t err =
+      sr3::raise_smem_limit(limit, (const void*)kernel, WTile::kSmem);
   if (err != cudaSuccess) return err;
-  const long long blocks128 = (long long)((a.H + kWTH - 1) / kWTH) *
-                              ((a.W + 15) / 16) * ((a.Cout + 127) / 128) * a.B;
-  if (a.Cout <= 64 || blocks128 < 2LL * sms)
-    return launch_wgmma<16, 1, 64>(a, 1, st);
-  return launch_wgmma<16, 1, 128>(a, 0, st);
+  const dim3 grid(p.tiles_h * p.tiles_w, p.n_tiles, a.B);
+  kernel<<<grid, kWThreads, WTile::kSmem, st>>>(
+      a.x, a.top, a.bottom, a.mult, a.add, a.w, a.bias, a.res, a.y, a.B, a.H,
+      a.W, a.Cin, a.Cout, p.tiles_w);
+  return cudaGetLastError();
+}
+
+// The halo entry's reads in the small class are a separate instantiation;
+// the Hopper kernel's normalizers test top / bottom off the products' path.
+cudaError_t launch_bf16(const ConvArgs& a, cudaStream_t st) {
+  int sms = 0;
+  cudaError_t err = sr3::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const ConvPlan p = conv_plan(a.B, a.H, a.W, a.Cout, sms);
+  if (p.items <= 0) return cudaErrorInvalidValue;
+  switch (p.cls) {
+    case 0: err = launch_tma<16, 1, 256>(a, p, st); break;
+    case 1: err = launch_tma<16, 1, 192>(a, p, st); break;
+    case 2: err = launch_tma<16, 1, 128>(a, p, st); break;
+    case 3: err = launch_tma<16, 1, 64>(a, p, st); break;
+    case 4: err = launch_tma<8, 2, 128>(a, p, st); break;
+    case 5: err = launch_tma<8, 2, 64>(a, p, st); break;
+    default:
+      err = a.top || a.bottom ? launch_small_as<true>(a, p, st)
+                              : launch_small_as<false>(a, p, st);
+  }
+  if (err == cudaSuccess)
+    g_tile_launches[p.cls].fetch_add(1, std::memory_order_relaxed);
+  return err;
 }
 
 dim3 conv_grid(int B, int H, int W, int Cout, int* tiles_w) {
@@ -568,15 +985,12 @@ cudaError_t launch_conv(const void* x, const void* top, const void* bottom,
           reinterpret_cast<uintptr_t>(mult) |
           reinterpret_cast<uintptr_t>(add)) % 16) == 0;
     if (!aligned) return cudaErrorInvalidValue;
-    const int vec = Cout % 8 == 0 &&
-                    ((reinterpret_cast<uintptr_t>(y) |
-                      reinterpret_cast<uintptr_t>(res)) % 16) == 0;
     const ConvArgs a{static_cast<const bf16*>(x),
                      static_cast<const bf16*>(top),
                      static_cast<const bf16*>(bottom), mult, add,
                      static_cast<const bf16*>(w), bias,
                      static_cast<const bf16*>(res), static_cast<bf16*>(y),
-                     B, H, W, Cin, Cout, vec};
+                     B, H, W, Cin, Cout};
     return launch_bf16(a, st);
   }
   int tiles_w;
@@ -645,12 +1059,31 @@ extern "C" int sr3_gn_silu_conv3x3_halo(const void* x, const void* top,
                           static_cast<cudaStream_t>(stream));
 }
 
-// Launches of each bfloat16 tile <TW, NI, BN> since the last reset, into
-// counts[0..3] in the order <16,1,128>, <16,1,64>, <16,1,8>, <8,2,64>;
-// reset != 0 sets them to 0 after reading. Returns the number of tiles.
+// Launches of each bfloat16 class <TW, NI, BN> since the last reset, into
+// counts[0..6] in the order <16,1,256>, <16,1,192>, <16,1,128>, <16,1,64>,
+// <8,2,128>, <8,2,64> (the Hopper kernel), <16,1,8> (C_out <= 8); reset != 0
+// sets them to 0 after reading. Returns the number of classes.
 extern "C" int sr3_gn_silu_conv3x3_tiles(long long* counts, int reset) {
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kClasses; ++i)
     counts[i] = reset ? g_tile_launches[i].exchange(0)
                       : g_tile_launches[i].load();
-  return 4;
+  return kClasses;
+}
+
+// The bfloat16 conv launch's plan for a (B, H, W, C_out) map on the
+// current device, into out[0..6]: class (the order of
+// sr3_gn_silu_conv3x3_tiles), tile rows and columns of a map, pixel tiles,
+// N-tiles, items (pixel tiles x N-tiles) and blocks (the Hopper kernel:
+// min(items, SMs), each walking items blockIdx.x, + blocks, ...). Returns
+// the CUDA error code (0 on success).
+extern "C" int sr3_gn_silu_conv3x3_plan(int B, int H, int W, int Cout,
+                                        long long* out) {
+  int sms = 0;
+  const cudaError_t err = sr3::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const ConvPlan p = conv_plan(B, H, W, Cout, sms);
+  const int fields[7] = {p.cls,    p.tiles_h, p.tiles_w, p.ptiles,
+                         p.n_tiles, p.items,  p.grid};
+  for (int i = 0; i < 7; ++i) out[i] = fields[i];
+  return 0;
 }

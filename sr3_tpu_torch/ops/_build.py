@@ -55,8 +55,10 @@ _SIGNATURES = {
     # x, top, bottom, mult, add, w, bias, res, y, B, H, W, Cin, Cout,
     # dtype, stream
     "sr3_gn_silu_conv3x3_halo": ([_P] * 9 + [_I] * 6 + [_P], _I),
-    # counts (4 long long), reset
+    # counts (7 long long), reset
     "sr3_gn_silu_conv3x3_tiles": ([_P, _I], _I),
+    # B, H, W, Cout, out (7 long long)
+    "sr3_gn_silu_conv3x3_plan": ([_I] * 4 + [_P], _I),
     # B, HW, C, G, dtype, pre
     "sr3_gn_bwd_workspace_floats": ([_I] * 6, _L),
     # x, dy, pre_scale, pre_bias, gamma, beta, mean, rstd, dx, dgamma, dbeta,

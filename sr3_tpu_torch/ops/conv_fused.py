@@ -59,14 +59,18 @@ from sr3_tpu_torch.ops.groupnorm import (_group_stats, _grouped, _normalize,
 from sr3_tpu_torch.utils.profiler import Counter, span
 
 counter = Counter("gn_silu_conv3x3")
-# The bfloat16 kernel's tiles <TW, NI, BN> (tile width, images per block,
-# output channels per block), in the order sr3_gn_silu_conv3x3_tiles
-# reports their launches.
-BF16_TILES = ("<16,1,128>", "<16,1,64>", "<16,1,8>", "<8,2,64>")
+# The bfloat16 conv launch's classes <TW, NI, BN> (tile width, images a
+# tile, output channels a tile), in the order sr3_gn_silu_conv3x3_tiles
+# reports their launches: the Hopper kernel's six, then C_out <= 8.
+BF16_TILES = ("<16,1,256>", "<16,1,192>", "<16,1,128>", "<16,1,64>",
+              "<8,2,128>", "<8,2,64>", "<16,1,8>")
+# sr3_gn_silu_conv3x3_plan's fields
+PLAN_FIELDS = ("cls", "tiles_h", "tiles_w", "ptiles", "n_tiles", "items",
+               "grid")
 
 
 def bf16_tile_launches(reset=False):
-    """Launches of each bfloat16 tile since the last reset, by tile name;
+    """Launches of each bfloat16 class since the last reset, by class name;
     ``reset`` sets them to 0 after reading. Loads the CUDA library."""
     counts = (ctypes.c_longlong * len(BF16_TILES))()
     n = _build.load_library().sr3_gn_silu_conv3x3_tiles(counts, int(reset))
@@ -74,6 +78,16 @@ def bf16_tile_launches(reset=False):
         raise RuntimeError(f"the library reports {n} bfloat16 tiles, "
                            f"expected {len(BF16_TILES)}")
     return dict(zip(BF16_TILES, counts))
+
+
+def bf16_plan(b, h, w, cout):
+    """The C library's plan of the bfloat16 conv launch on a (b, h, w)
+    map to ``cout`` channels on the current device, a dict of PLAN_FIELDS
+    (``tests/torch_port_conv_plan.py`` mirrors it). Loads the library."""
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    err = _build.load_library().sr3_gn_silu_conv3x3_plan(b, h, w, cout, out)
+    _build.check(err, "sr3_gn_silu_conv3x3_plan")
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def _post_act(x, gn_weight, gn_bias, num_groups, eps, post_scale,

@@ -546,14 +546,23 @@ def test_extern_c_signatures_match_ctypes():
 def test_k1_tile_order_matches_the_library():
     with open(os.path.join(_build.CSRC_DIR, "conv_fused.cu")) as f:
         src = f.read()
-    launches = re.findall(r"launch_wgmma<(\d+), (\d+), (\d+)>\(a, (\d+), st\)",
-                          src)
-    by_index = {int(i): f"<{tw},{ni},{bn}>" for tw, ni, bn, i in launches}
-    assert len(by_index) == len(launches)
+    table = [tuple(int(v) for v in re.search(
+        name + r"\[kClasses\] = \{([^}]*)\}", src).group(1).split(","))
+        for name in ("kClassTW", "kClassNI", "kClassBN")]
+    by_index = {i: f"<{tw},{ni},{bn}>"
+                for i, (tw, ni, bn) in enumerate(zip(*table))}
     assert [by_index[i] for i in range(len(by_index))] == list(
         conv_fused.BF16_TILES)
-    assert f"g_tile_launches[{len(conv_fused.BF16_TILES)}]" in src
-    assert f"return {len(conv_fused.BF16_TILES)};" in src
+    # each case of the launch switch runs the class of its index
+    launches = re.findall(
+        r"case (\d+): err = launch_tma<(\d+), (\d+), (\d+)>\(a, p, st\)",
+        src)
+    assert len(launches) == len(by_index) - 1
+    for i, tw, ni, bn in launches:
+        assert by_index[int(i)] == f"<{tw},{ni},{bn}>"
+    assert f"constexpr int kClasses = {len(conv_fused.BF16_TILES)};" in src
+    assert "g_tile_launches[kClasses]" in src
+    assert "return kClasses;" in src
 
 
 def test_k4_tile_order_matches_the_library():

@@ -34,6 +34,7 @@ import torch
 from sr3_tpu_torch.models.unet import UNet
 from sr3_tpu_torch.ops import attention, conv_fused, groupnorm
 import torch_port_attention_plan as plan_mirror
+import torch_port_conv_plan as conv_mirror
 
 pytestmark = pytest.mark.gpu
 CL = torch.channels_last
@@ -64,6 +65,8 @@ def rel(out, ref):
     (1, 192, 64, 16, 16, False),
     (2, 64, 3, 32, 32, False),      # final_conv tail
     (2, 48, 40, 12, 20, True),      # ragged C_out and tiles
+    (2, 48, 200, 12, 20, True),     # ragged C_out past one N-tile
+    (2, 64, 3, 12, 20, False),      # C_out 3 on a ragged map
     (1, 1024, 512, 8, 8, True),
     (3, 1024, 512, 8, 8, False),    # 8^2 maps: two images a tile, odd batch
     (1, 64, 64, 256, 256, True),    # the 64->512 UNet's maps
@@ -83,21 +86,91 @@ def test_k1_matches_plain(gen, dtype, b, cin, cout, h, w, film):
     assert rel(out, ref) <= TOL[dtype]["k1"]
 
 
+# one shape per bfloat16 class of K1's conv launch, and BN 192 and 256 over
+# several N-tiles (C_out 384, 768, 1536 -> 768, 512)
 @pytest.mark.parametrize("b,cin,cout,hw,tile", [
-    (2, 128, 256, 128, "<16,1,128>"),
-    (1, 128, 256, 128, "<16,1,64>"),    # 256 blocks of 128 < 2 x 132 SMs
+    (2, 128, 256, 128, "<16,1,256>"),
+    (2, 192, 192, 128, "<16,1,192>"),   # the ADM's 192 channels: one N-tile
+    (8, 128, 128, 64, "<16,1,128>"),
+    (1, 128, 256, 64, "<16,1,64>"),     # 32 pixel tiles: narrow N-tiles
+    (128, 512, 512, 8, "<8,2,128>"),    # 8^2 maps: two images a tile
     (2, 512, 512, 8, "<8,2,64>"),
     (2, 64, 3, 32, "<16,1,8>"),
-    (3, 64, 3, 8, "<16,1,8>"),        # C_out 3 on an 8^2 map: one image a tile
+    (3, 64, 3, 8, "<16,1,8>"),          # C_out 3 on an 8^2 map: one image a tile
+    (8, 192, 384, 64, "<16,1,192>"),    # 2 N-tiles
+    (64, 256, 768, 32, "<16,1,256>"),   # 3 N-tiles
+    (8, 1536, 768, 32, "<16,1,192>"),   # 4 N-tiles, the ADM's up path
+    (128, 512, 512, 16, "<16,1,256>"),  # 2 N-tiles, SR3 16->128 at 16^2
 ])
 def test_k1_bf16_tile_choice(gen, b, cin, cout, hw, tile):
+    """The class the plan mirror picks launches, matches the plain version
+    and gives the same bits twice."""
     args, kw = _k1_inputs(gen, torch.bfloat16, b, cin, cout, hw, hw, True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mirror = conv_mirror.conv_plan(b, hw, hw, cout, sms)
+    assert conv_fused.bf16_plan(b, hw, hw, cout) == mirror
+    if sms == conv_mirror.SMS:
+        assert conv_fused.BF16_TILES[mirror["cls"]] == tile
     conv_fused.bf16_tile_launches(reset=True)
     out = conv_fused.gn_silu_conv3x3(*args, **kw)
     taken = {k: n for k, n in conv_fused.bf16_tile_launches().items() if n}
-    assert taken == {tile: 1}
+    assert taken == {conv_fused.BF16_TILES[mirror["cls"]]: 1}
     ref = conv_fused.gn_silu_conv3x3_plain(*args, **kw)
     assert rel(out, ref) <= TOL[torch.bfloat16]["k1"]
+    again = conv_fused.gn_silu_conv3x3(*args, **kw)
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("name,batch", [("sr3_16_128", 128),
+                                        ("sr3_64_512", 8),
+                                        ("adm_128_512", 8)])
+def test_k1_forward_classes_follow_the_plan(gen, name, batch):
+    """A bf16 serving forward of each benchmark configuration at its cell's
+    batch launches, by the tile counters, the classes the plan mirror gives
+    its K1 sites, and the library's plan is the mirror's at each site."""
+    import json
+    import os
+    from collections import Counter
+
+    from portbench import costs
+    from portbench.reference import adm as ref
+    from sr3_tpu_torch.models import adm_unet
+    from sr3_tpu_torch.models.networks import define_G
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", name + ".json")) as f:
+        opt = json.load(f)["opt"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    if name == "adm_128_512":
+        sites = ref.k1_sites(opt, batch)
+        with torch.device("cuda"):
+            net = adm_unet.adm_from_opt(opt["model"], torch.bfloat16)
+        net = net.to(memory_format=CL).eval()
+        inputs = (r(batch, 3, 512, 512),
+                  torch.full((batch,), 999, device="cuda"),
+                  r(batch, 3, 128, 128).clamp(-1, 1),
+                  torch.arange(batch, device="cuda"))
+    else:
+        sites = costs.k1_sites(opt, batch, False)
+        net = define_G(opt, device="cuda").denoise_fn.eval()
+        size = opt["model"]["diffusion"]["image_size"]
+        inputs = (r(batch, net.in_channel, size, size).contiguous(
+            memory_format=CL), torch.rand(batch, device="cuda", generator=gen))
+    want = Counter()
+    for s in sites:
+        p = conv_mirror.conv_plan(s["b"], s["h"], s["w"], s["cout"], sms)
+        assert conv_fused.bf16_plan(s["b"], s["h"], s["w"], s["cout"]) == p
+        want[conv_fused.BF16_TILES[p["cls"]]] += 1
+    conv_fused.bf16_tile_launches(reset=True)
+    with torch.inference_mode():
+        out = net(*inputs)
+    torch.cuda.synchronize()
+    taken = {k: n for k, n in conv_fused.bf16_tile_launches(reset=True).items()
+             if n}
+    print(f"{name} batch {batch}: {taken}")
+    assert taken == dict(want)
+    assert torch.isfinite(out).all()
 
 
 def test_k1_ragged_cin(gen):
@@ -185,6 +258,7 @@ def _halo_inputs(gen, dtype, b, cin, cout, h, w, top, bottom):
     (2, 512, 512, 4, 8, True, False),     # an 8^2 map, last shard (2 rows
     (1, 64, 3, 256, 512, True, False),    # of 4); final_conv at 512^2
     (2, 48, 40, 5, 20, True, True),       # ragged
+    (2, 64, 128, 16, 32, False, False),   # a shard with no halo row given
 ])
 def test_k1_halo_entry_matches_plain(gen, dtype, b, cin, cout, h, w, top,
                                      bottom):
